@@ -1,0 +1,421 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port on one NVIDIA card and hold its kernels
+against their plain PyTorch versions.
+
+    python3 chip_smoke.py
+
+Phases, one line each: [1] device and settings, [2] kernel build from
+``motionmixerconv_tpu_torch/csrc``, [3] the fused ConvMixer core (B2) against
+its plain version, [4] the harmonic encoder forward (B1) against its plain
+version, [5] the flagship H36M ConvMixer served end to end over HTTP (launch
+counts reset just before and read just after), [6] times. Then one JSON line
+with every kernel's numbers, the card's name and power limit, and the result
+line. Any failure exits non-zero; with no CUDA device, or with the port's
+package missing beside this script, it exits at once and prints no result.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+import urllib.request
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SEED = 0
+TOL_B2 = 1e-4    # f32, kernel and plain version sum in different orders
+TOL_B1 = 1e-4    # f32, an 8448-term contraction summed in different orders
+TOL_E2E = 1e-4   # kernel path against the plain nn.Module forward
+B2_BATCHES = (1, 7, 32, 128)
+BULK_ROWS = 256
+DEVICE = "cuda:0"  # the one card the script needs
+# H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores, HBM3
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
+
+# the flagship: mmc-serve's defaults (bench.py's H36M ConvMixer shape)
+FLAGSHIP = dict(
+    num_blocks=4, dimPosIn=66, dimPosEmb=50, dimPosOut=66, in_nTP=10,
+    out_nTP=25, conv_nChan=1, conv1_kernel_shape=(1, 3), conv1_stride=(1, 1),
+    conv1_padding=(0, 1), mode_conv="twice", activation="mish",
+    regularization=0.1, use_se=True, r_se=8, encoder_n_harmonic_functions=64,
+    encoder_omega0=0.1)
+
+
+def fail(msg: str) -> None:
+    print(f"FAIL: {msg}", flush=True)
+    sys.exit(1)
+
+
+def say(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def card_line() -> str:
+    res = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    if res.returncode != 0 or not res.stdout.strip():
+        fail(f"nvidia-smi failed: {res.stderr.strip()}")
+    return res.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(torch, fn, reps: int = 50, trials: int = 7) -> float:
+    """Median over trials of the CUDA-event time per call of ``fn``."""
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(trials):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return statistics.median(times)
+
+
+def host_ms(torch, fn, reps: int = 50) -> float:
+    """Host time per call to enqueue ``fn`` (no synchronisation inside)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / reps * 1e3
+
+
+def host_median_ms(fn, reps: int = 30) -> float:
+    """Median host-clock time of ``fn``, which ends in a host copy."""
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(ts)
+
+
+def device_us(torch, fn, kernel: str, reps: int = 20):
+    """Mean device time per launch (microseconds) of the kernel whose name
+    holds ``kernel``, from a torch.profiler trace of ``reps`` calls of
+    ``fn``; None where the trace shows no device time for it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total, count = 0.0, 0
+    for ev in prof.key_averages():
+        if kernel in ev.key:
+            total += getattr(ev, "device_time_total", 0.0)
+            count += ev.count
+    return total / count if count and total > 0 else None
+
+
+def b2_work(spec, batch: int, n_weights: int):
+    """(bytes, operations) the fused ConvMixer core needs for ``batch``
+    samples: each input, weight and output element moved once; every
+    multiply, add, comparison and transcendental counted as one operation."""
+    T, E, P, D, H = spec.T, spec.E, spec.P, spec.D, spec.H
+    te = T * E
+
+    def branch(k):
+        ops = 7 * te                      # LayerNorm
+        ops += 2 * k[0] * k[1] * te + te  # stencil + bias
+        ops += 8 * te + 2 * te            # mish or GELU, BN affine
+        if spec.use_se:
+            ops += te + 4 * T * H + 4 * T + te  # squeeze, fc1/fc2, sigmoid, gate
+        return ops + te                   # residual
+
+    per_block = branch(spec.k1) + (branch(spec.k2) if spec.twice else
+                                   (2 * te + 4 * T * H + 4 * T if spec.use_se else te))
+    decoder = 7 * te + 2 * T * P * E + P * E + 2 * P * E + 8 * P * E \
+        + 2 * P * E * D + P * D
+    ops = batch * (spec.num_blocks * per_block + decoder)
+    nbytes = 4 * (batch * T * E + n_weights + batch * P * D)
+    return nbytes, ops
+
+
+def b1_work(rows: int, d: int, n: int, e: int, impl: str):
+    """(bytes, operations) of the fused harmonic forward for ``rows`` rows."""
+    nbytes = 4 * (rows * d + 2 * n * d * e + e + n + rows * e)
+    ops = 2 * rows * (2 * n * d) * e + rows * e  # the contraction, the bias
+    if impl == "direct":
+        ops += rows * d * n * 3                  # angle, sin, cos
+    else:
+        ops += rows * d * 3 + rows * d * (n - 1) * 9  # one sin/cos, doubling steps
+    return nbytes, ops
+
+
+def bound(nbytes: int, ops: int):
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def tf32_flags(torch) -> str:
+    return (f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
+            f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
+
+
+def post(base: str, path: str, payload: dict) -> dict:
+    req = urllib.request.Request(
+        f"{base}{path}", data=json.dumps(payload).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=120) as r:
+        return json.loads(r.read())
+
+
+def main() -> None:
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch sees no CUDA device")
+    sys.path.insert(0, str(ROOT))
+    try:
+        import motionmixerconv_tpu_torch as pkg
+    except ImportError as e:
+        fail(f"the port's package is not beside this script: {e}")
+    if Path(pkg.__file__).resolve().parent.parent != ROOT:
+        fail(f"imported the port from {pkg.__file__}, not from {ROOT}")
+    from motionmixerconv_tpu_torch.models import ConvMixer
+    from motionmixerconv_tpu_torch.ops import _build, conv_mixer, harmonic
+    from motionmixerconv_tpu_torch.serving import Predictor
+    from motionmixerconv_tpu_torch.serving_server import PredictionServer
+
+    # [1] device and settings
+    card = card_line()
+    dev = torch.device(DEVICE)
+    torch.cuda.set_device(dev)
+    say(f"[1 device] {card} | torch.cuda.get_device_name(0)="
+        f"{torch.cuda.get_device_name(0)} | device_count="
+        f"{torch.cuda.device_count()} | torch {torch.__version__} | CUDA "
+        f"{torch.version.cuda} | {tf32_flags(torch)} (PyTorch's defaults; the "
+        "port's Predictor pins both off, checked in phase 5)")
+
+    # [2] build every kernel from the sources in this checkout
+    t0 = time.perf_counter()
+    _build.load_library()
+    build_s = time.perf_counter() - t0
+    ptxas = [ln.split(":", 1)[1].strip() for ln in _build.build_log.splitlines()
+             if "Used" in ln and "registers" in ln]
+    say(f"[2 build] {build_s:.2f} s ({'built' if _build.build_log else 'cached'})"
+        f" | ptxas: {' ; '.join(ptxas) or 'n/a'}")
+
+    # [3] B2 against its plain version at the flagship shape
+    gen = torch.Generator().manual_seed(SEED)
+    flag = ConvMixer(**FLAGSHIP, generator=gen).eval().to(dev)
+    x_all = (torch.randn(BULK_ROWS, 10, 66, generator=gen) * 0.5).to(dev)
+    bn_cfg = dict(FLAGSHIP, regularization=-1.0, use_max_pooling=True,
+                  mode_conv="once")
+    bn_model = ConvMixer(**bn_cfg, generator=gen).eval()
+    with torch.no_grad():
+        for m in bn_model.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.weight.uniform_(0.5, 1.5, generator=gen)
+                m.bias.uniform_(-0.2, 0.2, generator=gen)
+                m.running_mean.uniform_(-0.5, 0.5, generator=gen)
+                m.running_var.uniform_(0.5, 1.5, generator=gen)
+    bn_model = bn_model.to(dev)
+    b2_err = 0.0
+    parts = []
+    with torch.no_grad():
+        for tag, model, batches in (("flagship", flag, B2_BATCHES),
+                                    ("bn+maxpool+once", bn_model, (7, 128))):
+            fused = conv_mixer.make_fused_conv_mixer(model)
+            y_all = fused.encoder(x_all[:128])[..., 0].contiguous()
+            for b in batches:
+                y = y_all[:b].contiguous()
+                got = conv_mixer.conv_mixer_fused(y, fused.weights, fused.spec)
+                want = conv_mixer.conv_mixer_plain(y, fused.weights, fused.spec)
+                torch.cuda.synchronize()
+                if not torch.isfinite(got).all():
+                    fail(f"B2 {tag} B={b}: non-finite output")
+                err = float((got - want).abs().max())
+                b2_err = max(b2_err, err)
+                parts.append(f"{tag} B={b} {err:.3e}")
+    say(f"[3 B2 conv_mixer_fused vs plain] max_abs_err {b2_err:.3e} "
+        f"(tol {TOL_B2:g}) | " + " ; ".join(parts))
+    if not b2_err <= TOL_B2:
+        fail(f"B2 disagrees with its plain version: {b2_err:.3e} > {TOL_B2:g}")
+
+    # [4] B1 forward against its plain version, R = 1280 and the bulk 2560
+    enc = flag.encoder
+    w, bias, freqs = enc.embed_mlp.weight.detach(), enc.embed_mlp.bias.detach(), \
+        enc.frequencies
+    wi = enc.kernel_weight()  # the i-major weight the fused encoder keeps
+    b1_err = 0.0
+    parts = []
+    with torch.no_grad():
+        for impl in ("direct", "doubling"):
+            for rows in (1280, BULK_ROWS * 10):
+                x2d = x_all.reshape(-1, 66)[:rows].contiguous()
+                got = harmonic.harmonic_dense_fwd(x2d, w, bias, freqs, impl, wi)
+                want = harmonic.harmonic_dense_plain(x2d, w, bias, freqs, impl)
+                torch.cuda.synchronize()
+                if not torch.isfinite(got).all():
+                    fail(f"B1 {impl} R={rows}: non-finite output")
+                err = float((got - want).abs().max())
+                b1_err = max(b1_err, err)
+                parts.append(f"{impl} R={rows} {err:.3e}")
+    say(f"[4 B1 harmonic_dense_fwd vs plain] max_abs_err {b1_err:.3e} "
+        f"(tol {TOL_B1:g}) | " + " ; ".join(parts))
+    if not b1_err <= TOL_B1:
+        fail(f"B1 disagrees with its plain version: {b1_err:.3e} > {TOL_B1:g}")
+
+    # [5] the main path: a .pt checkpoint served over HTTP on the card
+    ckpt = ROOT / "build" / "chip_smoke" / "flagship.pt"
+    ckpt.parent.mkdir(parents=True, exist_ok=True)
+    torch.save(ConvMixer(**FLAGSHIP, generator=torch.Generator().manual_seed(SEED + 1))
+               .state_dict(), ckpt)
+    predictor = Predictor.from_checkpoint(ConvMixer(**FLAGSHIP), str(ckpt),
+                                          device=dev)
+    bulk = Predictor.from_checkpoint(ConvMixer(**FLAGSHIP, encoder_fused=True),
+                                     str(ckpt), device=dev)
+    if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
+        fail(f"the port left TF32 on for its plain forward: {tf32_flags(torch)}")
+    server = PredictionServer(predictor, port=0, warmup=True)
+    server.start_background()
+    base = f"http://127.0.0.1:{server.port}"
+    rs = torch.Generator().manual_seed(SEED + 2)
+    reqs = {b: torch.randn(b, 10, 66, generator=rs) * 0.5 for b in (1, 5, 32)}
+    x_bulk = torch.randn(BULK_ROWS, 10, 66, generator=rs) * 0.5
+    plain = predictor.model  # the loaded nn.Module, plain forward
+
+    for c in (conv_mixer.LAUNCHES, harmonic.LAUNCHES):
+        c.reset()
+    answers = {b: post(base, "/predict", {"inputs": x.tolist()})["outputs"]
+               for b, x in reqs.items()}
+    rollout = post(base, "/predict_autoregressive",
+                   {"inputs": reqs[5].tolist(), "horizon": 12})["outputs"]
+    bulk_out = bulk.predict(x_bulk)
+    torch.cuda.synchronize()
+    launches = {"conv_mixer_fused": conv_mixer.LAUNCHES.value,
+                "harmonic_dense_fwd": harmonic.LAUNCHES.value}
+
+    with torch.no_grad():
+        e2e = []
+        for b, x in reqs.items():
+            got = torch.tensor(answers[b], dtype=torch.float32)
+            want = plain(x.to(dev)).cpu()
+            if got.shape != (b, 25, 66) or not torch.isfinite(got).all():
+                fail(f"/predict b={b}: bad answer of shape {tuple(got.shape)}")
+            e2e.append((f"/predict b={b}", float((got - want).abs().max())))
+        got = torch.tensor(rollout, dtype=torch.float32)
+        want = plain(reqs[5].to(dev))[:, :12].cpu()
+        if got.shape != (5, 12, 66):
+            fail(f"/predict_autoregressive: shape {tuple(got.shape)}")
+        e2e.append(("/predict_autoregressive b=5 h=12",
+                    float((got - want).abs().max())))
+        want = plain(x_bulk.to(dev))
+        if bulk_out.shape != (BULK_ROWS, 25, 66) or not torch.isfinite(bulk_out).all():
+            fail("bulk predict: bad output")
+        e2e.append((f"bulk encoder_fused b={BULK_ROWS}",
+                    float((bulk_out - want).abs().max())))
+    with urllib.request.urlopen(f"{base}/healthz", timeout=30) as r:
+        health = json.loads(r.read())
+    say(f"[5 serve] health {health} | {tf32_flags(torch)} | launches on the "
+        f"main path {launches} | "
+        + " ; ".join(f"{k} err {v:.3e}" for k, v in e2e) + f" (tol {TOL_E2E:g})")
+    for k, v in e2e:
+        if not v <= TOL_E2E:
+            fail(f"{k}: {v:.3e} from the plain forward (tol {TOL_E2E:g})")
+    for k, v in launches.items():
+        if v < 1:
+            fail(f"kernel {k} was not launched on the main path")
+
+    # [6] times (CUDA events; per-request latency on the host clock)
+    lat, bat_lat = {}, {}
+    for b in (1, 32):
+        payload = {"inputs": reqs[b].tolist()}
+        xb = reqs[b].numpy()
+        lat[b] = host_median_ms(lambda: post(base, "/predict", payload))
+        bat_lat[b] = host_median_ms(lambda: server.batcher.predict(xb))
+    server.close()
+    pred_lat = {}
+    for b, p in ((1, predictor), (32, predictor), (128, predictor), (BULK_ROWS, bulk)):
+        xb = x_bulk[:b].clone()
+        p.predict(xb).cpu()
+        pred_lat[b] = host_median_ms(lambda: p.predict(xb).cpu())
+
+    with torch.no_grad():
+        fused = predictor._fused
+        spec, wts = fused.spec, fused.weights
+        b2 = {}
+        for b in (1, 32, 128):
+            y = fused.encoder(x_all[:b])[..., 0].contiguous()
+            b2[b] = (
+                cuda_ms(torch, lambda: conv_mixer.conv_mixer_fused(y, wts, spec)),
+                cuda_ms(torch, lambda: conv_mixer.conv_mixer_plain(y, wts, spec)),
+                host_ms(torch, lambda: conv_mixer.conv_mixer_fused(y, wts, spec)),
+            )
+        rows = BULK_ROWS * 10
+        x2d = x_all.reshape(-1, 66)[:rows].contiguous()
+        b1 = {}
+        for impl in ("direct", "doubling"):
+            b1[impl] = (
+                cuda_ms(torch, lambda: harmonic.harmonic_dense_fwd(
+                    x2d, w, bias, freqs, impl, wi), reps=10),
+                cuda_ms(torch, lambda: harmonic.harmonic_dense_plain(
+                    x2d, w, bias, freqs, impl), reps=10),
+            )
+        y = fused.encoder(x_all[:128])[..., 0].contiguous()
+        dev_us = {
+            "B2 B=128": device_us(torch, lambda: conv_mixer.conv_mixer_fused(
+                y, wts, spec), "conv_mixer_fused_kernel"),
+            **{f"B1 {i} R={rows}": device_us(
+                torch, lambda: harmonic.harmonic_dense_fwd(x2d, w, bias, freqs, i, wi),
+                "harmonic_dense_fwd_kernel", reps=5)
+               for i in ("direct", "doubling")},
+        }
+    nb2, ob2 = b2_work(spec, 128, wts.numel())
+    bound_b2, by_b2 = bound(nb2, ob2)
+    nb1, ob1 = b1_work(rows, 66, 64, 50, "direct")
+    bound_b1, by_b1 = bound(nb1, ob1)
+    say(f"[6 times] {card} | B2 conv_mixer_fused kernel/plain/host-enqueue ms: "
+        + " ; ".join(f"B={b} {k:.4f}/{p:.4f}/{h:.4f}" for b, (k, p, h) in b2.items())
+        + f" | B1 harmonic_dense_fwd R={rows} kernel/plain ms: "
+        + " ; ".join(f"{i} {k:.4f}/{p:.4f}" for i, (k, p) in b1.items())
+        + " | profiler device us/launch: " + " ; ".join(
+            f"{k} {'not measured' if v is None else f'{v:.2f}'}"
+            for k, v in dev_us.items())
+        + " | Predictor.predict latency ms (host clock, to a CPU array): "
+        + " ; ".join(f"b={b} {v:.3f}" for b, v in pred_lat.items())
+        + f" | BatchingPredictor.predict latency ms: b=1 {bat_lat[1]:.3f} ; "
+          f"b=32 {bat_lat[32]:.3f}"
+        + f" | HTTP /predict latency ms: b=1 {lat[1]:.3f} ; b=32 {lat[32]:.3f}"
+        + f" | bound ms: B2 B=128 {bound_b2:.6f} ({by_b2}), "
+          f"B1 R={rows} {bound_b1:.6f} ({by_b1})")
+
+    kernels = [
+        {"name": "conv_mixer_fused", "route": "cuda",
+         "source": "motionmixerconv_tpu_torch/csrc/conv_mixer_fused.cu",
+         "replaces": "motionmixerconv_tpu/ops/pallas_conv_mixer.py:579",
+         "launches": launches["conv_mixer_fused"], "max_abs_err": b2_err,
+         "ms": b2[128][0], "plain_ms": b2[128][1], "bound_ms": bound_b2,
+         "bound_by": by_b2, "library_ms": None},
+        {"name": "harmonic_dense_fwd", "route": "cuda",
+         "source": "motionmixerconv_tpu_torch/csrc/harmonic_dense.cu",
+         "replaces": "motionmixerconv_tpu/ops/pallas_harmonic.py:54",
+         "launches": launches["harmonic_dense_fwd"], "max_abs_err": b1_err,
+         "ms": b1["direct"][0], "plain_ms": b1["direct"][1], "bound_ms": bound_b1,
+         "bound_by": by_b1, "library_ms": None},
+    ]
+    say(json.dumps({"kernels": kernels}))
+    say(card)
+    say(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

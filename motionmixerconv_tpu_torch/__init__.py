@@ -1,0 +1,14 @@
+"""MotionMixerConv on PyTorch and CUDA: the port of ``motionmixerconv_tpu``.
+
+The JAX package beside it is the unchanged reference. This package imports
+``torch`` and never ``jax``. Its hot kernels are hand-written CUDA C++ for
+Hopper (``csrc/``), built at first use; each has a plain PyTorch version
+that serves CPU tensors.
+
+- ``models``   — PoseEncoder and ConvMixer with the reference state_dict names
+- ``ops``      — activations and the CUDA kernels' wrappers
+- ``train``    — the autoregressive rollout
+- ``serving``  — Predictor; ``serving_server`` — micro-batching HTTP server
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,134 @@
+"""Build and load the hand-written CUDA kernels at first use.
+
+Every ``csrc/*.cu`` is compiled and linked by one ``nvcc`` call for
+``sm_90a`` into one shared library with a plain C interface, loaded with
+``ctypes``; no source includes PyTorch's headers. The library lands in ``build/torch_kernels/`` at the repository
+root (listed in ``.gitignore``), named by a hash of the sources and flags,
+so an unchanged tree reuses it and a changed one rebuilds. A failed build
+raises; nothing falls back to the plain versions.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import fcntl
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+NVCC_FLAGS = [
+    "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+MAX_SMEM_BYTES = 232448  # dynamic shared memory one H100 block can use
+
+_lock = threading.Lock()
+_lib = None
+build_log = ""  # nvcc's output of the last build in this process (ptxas -v)
+
+
+class Counter:
+    """A thread-safe integer count (kernel launches, plain-version calls)."""
+
+    def __init__(self):
+        self.value = 0
+        self._lock = threading.Lock()
+
+    def add(self) -> None:
+        with self._lock:
+            self.value += 1
+
+    def reset(self) -> None:
+        with self._lock:
+            self.value = 0
+
+
+def _nvcc() -> str:
+    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if cand and (Path(cand) / "bin" / "nvcc").exists():
+            return str(Path(cand) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return found
+
+
+def _compile(lib_path: Path) -> str:
+    """Every source into ``lib_path`` with one nvcc call; returns its log."""
+    tmp = lib_path.with_name(f".{lib_path.name}.{os.getpid()}")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp),
+           *map(str, sorted(CSRC.glob("*.cu")))]
+    res = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                         text=True)
+    if res.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed: {' '.join(cmd)}\n{res.stdout}")
+    os.replace(tmp, lib_path)
+    return res.stdout
+
+
+def _declare(lib) -> None:
+    p, i, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
+    lib.mmc_error_string.argtypes = [i]
+    lib.mmc_error_string.restype = ctypes.c_char_p
+    lib.mmc_conv_mixer_weights_numel.argtypes = [i] * 10
+    lib.mmc_conv_mixer_weights_numel.restype = L
+    lib.mmc_conv_mixer_smem_bytes.argtypes = [i] * 10
+    lib.mmc_conv_mixer_smem_bytes.restype = L
+    lib.mmc_conv_mixer_fused.argtypes = [p, p, p] + [i] * 15 + [p]
+    lib.mmc_conv_mixer_fused.restype = i
+    lib.mmc_harmonic_max_outputs_per_tile.argtypes = []
+    lib.mmc_harmonic_max_outputs_per_tile.restype = i
+    lib.mmc_harmonic_smem_bytes.argtypes = [i, i, i]
+    lib.mmc_harmonic_smem_bytes.restype = L
+    lib.mmc_harmonic_dense_fwd.argtypes = [p] * 5 + [i] * 6 + [p]
+    lib.mmc_harmonic_dense_fwd.restype = i
+
+
+def load_library():
+    """The kernels' shared library, built on first call. Needs a CUDA card
+    and ``nvcc``; raises RuntimeError otherwise."""
+    global _lib, build_log
+    with _lock:
+        if _lib is not None:
+            return _lib
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device: the CUDA kernels cannot run")
+        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        for f in sorted(CSRC.iterdir()):
+            h.update(f.name.encode())
+            h.update(f.read_bytes())
+        lib_path = BUILD_DIR / f"libmmc_kernels_{h.hexdigest()[:16]}.so"
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        # one builder at a time across processes; the others wait, then load
+        with open(BUILD_DIR / ".lock", "w") as lock_file:
+            fcntl.flock(lock_file, fcntl.LOCK_EX)
+            try:
+                if not lib_path.exists():
+                    build_log = _compile(lib_path)
+            finally:
+                fcntl.flock(lock_file, fcntl.LOCK_UN)
+        lib = ctypes.CDLL(str(lib_path))
+        _declare(lib)
+        _lib = lib
+        return lib
+
+
+def check(lib, err: int, what: str) -> None:
+    """Raise if a launch returned a CUDA error."""
+    if err != 0:
+        raise RuntimeError(
+            f"{what}: CUDA error {err}: {lib.mmc_error_string(err).decode()}")
+
+
+def stream_ptr(device: torch.device) -> int:
+    """PyTorch's current stream on ``device`` as a raw pointer."""
+    return torch.cuda.current_stream(device).cuda_stream

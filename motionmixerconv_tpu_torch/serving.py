@@ -1,0 +1,162 @@
+"""Serving API: batched prediction from a trained ConvMixer on one device.
+
+Counterpart of ``motionmixerconv_tpu/serving.py``. ``Predictor`` keeps the
+model on its device and routes batches of at most ``fused_max_batch`` rows
+to the fused ConvMixer kernel (``ops/conv_mixer.py``) and larger ones to the
+plain model forward. It runs on the card unless the caller passes
+``device="cpu"``; with no card the default raises.
+"""
+
+from __future__ import annotations
+
+import copy
+import warnings
+from typing import Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from .models.mixer_conv import ConvMixer
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a torch.device; a CUDA device with no card raises.
+
+    On the card it also pins full float32 for the plain forward's cuDNN
+    convolutions and cuBLAS matmuls, process-wide: PyTorch lets cuDNN run
+    ``Conv2d`` in TF32 by default, and the JAX reference computes in float32.
+    """
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"device {device!r} requested but torch sees no CUDA device; "
+                "pass device='cpu' to run on the CPU")
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    return dev
+
+
+def as_tensor(x, device: torch.device) -> torch.Tensor:
+    """(B, T, D) array or tensor -> contiguous float32 tensor on ``device``."""
+    if not isinstance(x, torch.Tensor):
+        x = torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32))
+    return x.to(device=device, dtype=torch.float32).contiguous()
+
+
+class Predictor:
+    """Device-resident model server.
+
+    Args:
+        model: a port ConvMixer ((B, input_n, D) -> (B, output_n, D)); the
+            predictor works on its own copy.
+        state_dict: reference-layout weights, loaded with ``strict=True``;
+            None keeps the model's own.
+        device: where the model lives and predictions run ("cuda" default).
+        use_fused: route small batches to the fused kernel. Shapes it does
+            not take fall back to the plain forward with a visible warning
+            (``fused_fallback_reason``).
+        fused_max_batch: largest batch routed to the fused kernel.
+        mesh: the sharded bulk path is not ported yet and raises.
+    """
+
+    def __init__(self, model: nn.Module, state_dict=None, *, device="cuda",
+                 use_fused: bool = True, fused_max_batch: int = 128,
+                 mesh=None):
+        if mesh is not None:
+            raise NotImplementedError(
+                "the mesh-sharded bulk path lands with the multi-GPU slice "
+                "(ROADMAP queue A item 17)")
+        self.device = resolve_device(device)
+        model = copy.deepcopy(model)
+        if state_dict is not None:
+            model.load_state_dict(state_dict, strict=True)
+        self.model = model.to(self.device).eval()
+        self.fused_max_batch = fused_max_batch
+        self._fused = None
+        self.fused_fallback_reason: Optional[str] = None
+        if use_fused:
+            if isinstance(self.model, ConvMixer):
+                from .ops.conv_mixer import make_fused_conv_mixer
+
+                try:
+                    self._fused = make_fused_conv_mixer(self.model)
+                except NotImplementedError as e:
+                    self.fused_fallback_reason = str(e)
+            else:
+                self.fused_fallback_reason = (
+                    f"no fused kernel for {type(self.model).__name__}")
+            if self.fused_fallback_reason is not None:
+                warnings.warn(
+                    f"serving: fused kernel unavailable "
+                    f"({self.fused_fallback_reason}); all batches use the "
+                    "plain forward", stacklevel=2)
+
+    @property
+    def device_name(self) -> str:
+        if self.device.type == "cuda":
+            return torch.cuda.get_device_name(self.device)
+        return str(self.device)
+
+    def replicate_to(self, device) -> "Predictor":
+        """A copy of this predictor on ``device``, with its own parameters
+        and (when active) its own packed fused weights."""
+        clone = copy.copy(self)
+        clone.device = resolve_device(device)
+        clone.model = copy.deepcopy(self.model).to(clone.device).eval()
+        if self._fused is not None:
+            from .ops.conv_mixer import make_fused_conv_mixer
+
+            clone._fused = make_fused_conv_mixer(clone.model)
+        return clone
+
+    @classmethod
+    def from_checkpoint(cls, model: Optional[nn.Module], path: str,
+                        **kw) -> "Predictor":
+        """Load a reference torch ``.pt``/``.pth`` state_dict into ``model``.
+        The JAX ``.ckpt`` format (and rebuilding the model from its stored
+        training args) lands with checkpoint interchange."""
+        if not path.endswith((".pt", ".pth")):
+            raise NotImplementedError(
+                f"{path}: only reference torch .pt/.pth checkpoints load here; "
+                ".ckpt lands with checkpoint interchange (ROADMAP queue A "
+                "item 14)")
+        if model is None:
+            raise ValueError(
+                f"{path}: a .pt state_dict carries no architecture; pass the "
+                "model explicitly")
+        from .models.torch_io import load_pt_into
+
+        return cls(load_pt_into(model, path), **kw)
+
+    @torch.inference_mode()
+    def predict(self, x) -> torch.Tensor:
+        """(B, input_n, D) -> (B, output_n, D) on the predictor's device."""
+        x = as_tensor(x, self.device)
+        if self._fused is not None and x.shape[0] <= self.fused_max_batch:
+            return self._fused(x)
+        return self.model(x)
+
+    @torch.inference_mode()
+    def predict_autoregressive(self, x, horizon: int,
+                               step_window: Optional[int] = None
+                               ) -> torch.Tensor:
+        """Closed-loop rollout to an arbitrary horizon: reuse the last
+        input_n - step frames, append the prediction. ``step_window``
+        defaults to the model's output length."""
+        from .train.autoregressive import autoregressive_rollout
+
+        in_n, out_n = self.model.in_nTP, self.model.out_nTP
+        step = step_window or out_n
+        n_steps = -(-horizon // step)  # ceil
+        total = in_n + n_steps * step
+        x = as_tensor(x, self.device)
+        pad = x.new_zeros((x.shape[0], total - in_n, x.shape[2]))
+        seq = torch.cat([x, pad], dim=1)
+        _, pred = autoregressive_rollout(
+            self.model, seq, input_n_model=in_n, output_n_model=out_n,
+            step_window=step, teacher_forcing=False,
+            loss_per_sample=lambda p, g: p.new_zeros(p.shape[0]),
+        )
+        return pred[:, :horizon]

@@ -1,0 +1,351 @@
+"""The port's serving path on the CPU: Predictor routing against the JAX
+package's Predictor, the micro-batching server, checkpoints, the refusal to
+run without a card by default, and the port's independence from JAX."""
+
+import ast
+import json
+import os
+import subprocess
+import sys
+import threading
+import time
+import urllib.error
+import urllib.request
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from motionmixerconv_tpu.models import ConvMixer as JaxConvMixer
+from motionmixerconv_tpu.serving import Predictor as JaxPredictor
+from motionmixerconv_tpu_torch import serving_server
+from motionmixerconv_tpu_torch.models import ConvMixer, state_dict_from_jax
+from motionmixerconv_tpu_torch.ops import conv_mixer, harmonic
+from motionmixerconv_tpu_torch.serving import Predictor
+from motionmixerconv_tpu_torch.serving_server import BatchingPredictor, PredictionServer
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+# the flagship serving structure (serving_server.main's defaults) at 2 blocks
+FLAGSHIP_2B = dict(
+    num_blocks=2, dimPosIn=66, dimPosEmb=50, dimPosOut=66, in_nTP=10,
+    out_nTP=25, conv_nChan=1, conv1_kernel_shape=(1, 3), conv1_stride=(1, 1),
+    conv1_padding=(0, 1), mode_conv="twice", activation="mish",
+    regularization=0.1, use_se=True, r_se=8, encoder_n_harmonic_functions=64,
+    encoder_omega0=0.1)
+SMALL = dict(FLAGSHIP_2B, num_blocks=1, dimPosEmb=24, out_nTP=5,
+             encoder_n_harmonic_functions=4)
+
+
+def _both(cfg, seed=0):
+    """The JAX model's variables and the port's model loaded from them."""
+    jmodel = JaxConvMixer(**cfg)
+    variables = jmodel.init(jax.random.PRNGKey(seed),
+                            jnp.zeros((1, cfg["in_nTP"], cfg["dimPosIn"])),
+                            training=False)
+    variables = jax.tree_util.tree_map(np.asarray, variables)
+    sd = state_dict_from_jax(variables, cfg["num_blocks"],
+                             cfg["encoder_n_harmonic_functions"],
+                             cfg["encoder_omega0"])
+    return jmodel, variables, sd
+
+
+def _x(batch, cfg, seed=1):
+    rs = np.random.RandomState(seed)
+    return (rs.randn(batch, cfg["in_nTP"], cfg["dimPosIn"]) * 0.5).astype(
+        np.float32)
+
+
+def _small_predictor(**kw):
+    _, _, sd = _both(SMALL)
+    return Predictor(ConvMixer(**SMALL), sd, device="cpu", **kw)
+
+
+def test_predict_routes_by_batch_and_matches_jax():
+    """B <= fused_max_batch goes through the B2 wrapper (its plain version
+    on the CPU), larger batches through the plain model forward; both match
+    the JAX Predictor. Tolerances: 3e-4 for the fused path (the Pallas
+    kernel's own test tolerance), 2e-5 for the plain forward (the model
+    parity tolerance)."""
+    jmodel, variables, sd = _both(FLAGSHIP_2B)
+    jp = JaxPredictor(jmodel, variables)
+    p = Predictor(ConvMixer(**FLAGSHIP_2B), sd, device="cpu", fused_max_batch=4)
+    assert p.fused_fallback_reason is None
+
+    small, big = _x(3, FLAGSHIP_2B), _x(6, FLAGSHIP_2B, seed=2)
+    before = conv_mixer.PLAIN_CALLS.value
+    got = p.predict(small)
+    assert conv_mixer.PLAIN_CALLS.value == before + 1
+    assert got.device.type == "cpu" and got.shape == (3, 25, 66)
+    np.testing.assert_allclose(got.numpy(), np.asarray(jp.predict(small)),
+                               atol=3e-4)
+
+    got = p.predict(big)
+    assert conv_mixer.PLAIN_CALLS.value == before + 1  # not the fused path
+    np.testing.assert_allclose(got.numpy(), np.asarray(jp.predict(big)),
+                               atol=2e-5)
+
+
+def test_bulk_path_with_fused_encoder_matches_jax():
+    """Above fused_max_batch an encoder_fused model runs the B1 wrapper."""
+    cfg = dict(FLAGSHIP_2B, encoder_fused=True)
+    jmodel, variables, sd = _both(cfg)
+    x = _x(5, cfg)
+    want = np.asarray(JaxPredictor(jmodel, variables).predict(x))
+    p = Predictor(ConvMixer(**cfg), sd, device="cpu", fused_max_batch=2)
+    before = (harmonic.PLAIN_CALLS.value, conv_mixer.PLAIN_CALLS.value)
+    got = p.predict(x).numpy()
+    assert harmonic.PLAIN_CALLS.value == before[0] + 1
+    assert conv_mixer.PLAIN_CALLS.value == before[1]
+    np.testing.assert_allclose(got, want, atol=2e-5)
+
+
+def test_predict_autoregressive_matches_jax():
+    jmodel, variables, sd = _both(SMALL)
+    x = _x(4, SMALL)
+    want = np.asarray(JaxPredictor(jmodel, variables).predict_autoregressive(
+        x, horizon=12))
+    got = Predictor(ConvMixer(**SMALL), sd, device="cpu").predict_autoregressive(
+        x, horizon=12).numpy()
+    assert got.shape == want.shape == (4, 12, 66)
+    np.testing.assert_allclose(got, want, atol=2e-5)
+
+
+def test_pt_checkpoint_roundtrip(tmp_path):
+    p = _small_predictor()
+    path = str(tmp_path / "model.pt")
+    torch.save(p.model.state_dict(), path)
+    q = Predictor.from_checkpoint(ConvMixer(**SMALL), path, device="cpu")
+    x = _x(3, SMALL)
+    torch.testing.assert_close(q.predict(x), p.predict(x), atol=0, rtol=0)
+    with pytest.raises(ValueError, match="no architecture"):
+        Predictor.from_checkpoint(None, path, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 14"):
+        Predictor.from_checkpoint(ConvMixer(**SMALL), str(tmp_path / "m.ckpt"),
+                                  device="cpu")
+    with pytest.raises(NotImplementedError, match="item 17"):
+        Predictor(ConvMixer(**SMALL), device="cpu", mesh=object())
+
+
+def test_replicate_to_copies_the_weights():
+    p = _small_predictor()
+    q = p.replicate_to("cpu")
+    assert q.model is not p.model and q._fused is not p._fused
+    x = _x(2, SMALL)
+    torch.testing.assert_close(q.predict(x), p.predict(x), atol=0, rtol=0)
+
+
+def test_shapes_outside_the_kernel_fall_back_with_a_warning():
+    cfg = dict(SMALL, conv_nChan=2)  # needs kernel B3, not ported yet
+    with pytest.warns(UserWarning, match="fused kernel unavailable"):
+        p = Predictor(ConvMixer(**cfg), device="cpu")
+    assert "conv_nChan" in p.fused_fallback_reason
+    before = conv_mixer.PLAIN_CALLS.value
+    assert p.predict(_x(2, cfg)).shape == (2, 5, 66)
+    assert conv_mixer.PLAIN_CALLS.value == before
+
+
+def test_default_device_raises_without_a_card(monkeypatch, tmp_path):
+    """Entry points run on the card unless the caller asks for the CPU; with
+    no card they raise instead of carrying on on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Predictor(ConvMixer(**SMALL))
+    path = str(tmp_path / "m.pt")
+    torch.save(ConvMixer(**SMALL).state_dict(), path)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serving_server.main(["--model_path", path, "--port", "0"])
+
+
+def test_card_device_pins_float32(monkeypatch):
+    """Serving on the card turns TF32 off for cuDNN and cuBLAS, so the plain
+    forward's convolutions compute in float32 as the JAX reference does."""
+    from motionmixerconv_tpu_torch.serving import resolve_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    resolve_device("cpu")
+    assert torch.backends.cudnn.allow_tf32 and torch.backends.cuda.matmul.allow_tf32
+    assert resolve_device("cuda").type == "cuda"
+    assert not torch.backends.cudnn.allow_tf32
+    assert not torch.backends.cuda.matmul.allow_tf32
+
+
+# ---------------------------------------------------------------- batching
+
+
+def _concurrent(b, xs, join_timeout=30):
+    results = [None] * len(xs)
+
+    def worker(i):
+        results[i] = b.predict(xs[i])
+
+    threads = [threading.Thread(target=worker, args=(i,)) for i in range(len(xs))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=join_timeout)
+    assert not any(t.is_alive() for t in threads)
+    return results
+
+
+def test_batching_predictor_coalesces_and_matches():
+    p = _small_predictor()
+    b = BatchingPredictor(p, max_batch=64, max_wait_ms=30.0)
+    rs = np.random.RandomState(0)
+    xs = [rs.randn(3, 10, 66).astype(np.float32) for _ in range(12)]
+    want = [p.predict(x).numpy() for x in xs]
+    try:
+        results = _concurrent(b, xs)
+    finally:
+        b.close()
+    for got, exp in zip(results, want):
+        np.testing.assert_allclose(got, exp, atol=1e-5)
+    s = b.stats()
+    assert s["requests"] == 12 and s["rows"] == 36
+    assert s["batches"] < s["requests"]
+    assert s["mean_batch_rows"] > 3.0
+    assert all(k in (8, 16, 32, 64) for k in s["bucket_counts"])
+
+
+def test_bucket_warmup_and_error_propagation():
+    p = _small_predictor()
+    b = BatchingPredictor(p, max_batch=32, max_wait_ms=1.0)
+    try:
+        assert b.buckets == [8, 16, 32]
+        b.warmup((10, 66))
+        out = b.predict(np.zeros((5, 10, 66), np.float32))
+        assert out.shape == (5, 5, 66) and isinstance(out, np.ndarray)
+        assert 8 in b.stats()["bucket_counts"]
+        with pytest.raises(ValueError):  # wrong T: the wrapper rejects it
+            b.predict(np.zeros((1, 9, 66), np.float32))
+        # the worker survived and still serves
+        assert b.predict(np.zeros((2, 10, 66), np.float32)).shape == (2, 5, 66)
+    finally:
+        b.close()
+
+
+def test_drain_never_overshoots_max_batch():
+    p = _small_predictor()
+    b = BatchingPredictor(p, max_batch=16, max_wait_ms=40.0)
+    rs = np.random.RandomState(1)
+    xs = [rs.randn(10, 10, 66).astype(np.float32) for _ in range(6)]
+    want = [p.predict(x).numpy() for x in xs]
+    try:
+        results = _concurrent(b, xs)
+    finally:
+        b.close()
+    for got, w in zip(results, want):
+        np.testing.assert_allclose(got, w, atol=1e-5)
+    assert b.bucket_counts and max(b.bucket_counts) <= 16, b.bucket_counts
+
+
+def test_close_unblocks_pending_clients():
+    b = BatchingPredictor(_small_predictor(), max_batch=8, max_wait_ms=1.0)
+    b._stop.set()  # freeze the batcher loop so the request stays queued
+    for t in b._threads:
+        t.join(timeout=5)
+    errors = []
+
+    def worker():
+        try:
+            b.predict(np.zeros((2, 10, 66), np.float32))
+        except RuntimeError as e:
+            errors.append(e)
+
+    t = threading.Thread(target=worker)
+    t.start()
+    time.sleep(0.2)
+    b.close()
+    t.join(timeout=5)
+    assert not t.is_alive(), "client still blocked after close()"
+    assert errors and "closed" in str(errors[0])
+
+
+def _post(base, path, payload):
+    req = urllib.request.Request(
+        f"{base}{path}", data=json.dumps(payload).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=30) as r:
+        return json.loads(r.read())
+
+
+def test_http_server_roundtrip():
+    p = _small_predictor()
+    server = PredictionServer(p, port=0, max_wait_ms=5.0, warmup=True)
+    server.start_background()
+    base = f"http://127.0.0.1:{server.port}"
+    try:
+        with urllib.request.urlopen(f"{base}/healthz", timeout=10) as r:
+            health = json.loads(r.read())
+        assert health["status"] == "ok" and health["device"] == "cpu"
+        assert health["n_devices"] == torch.cuda.device_count()
+
+        x = _x(4, SMALL)
+        out = np.asarray(_post(base, "/predict", {"inputs": x.tolist()})["outputs"],
+                         np.float32)
+        np.testing.assert_allclose(out, p.predict(x).numpy(), atol=1e-5)
+
+        out = np.asarray(_post(base, "/predict_autoregressive",
+                               {"inputs": x.tolist(), "horizon": 12})["outputs"],
+                         np.float32)
+        np.testing.assert_allclose(
+            out, p.predict_autoregressive(x, horizon=12).numpy(), atol=1e-5)
+
+        with pytest.raises(urllib.error.HTTPError) as err:
+            _post(base, "/predict", {"inputs": [1.0, 2.0]})
+        assert err.value.code == 400
+
+        with urllib.request.urlopen(f"{base}/stats", timeout=10) as r:
+            assert json.loads(r.read())["requests"] >= 1
+    finally:
+        server.close()
+
+
+# ------------------------------------------------------------ independence
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    """Every module of the port imports cleanly in a fresh interpreter that
+    then holds no jax and no module of the JAX package (whose name is a
+    prefix of the port's, so a plain startswith check would be wrong)."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import motionmixerconv_tpu_torch as pkg\n"
+        "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
+        "for n in names: importlib.import_module(n)\n"
+        "bad = [m for m in sys.modules if m in ('jax', 'flax', 'motionmixerconv_tpu')\n"
+        "       or m.startswith(('jax.', 'flax.', 'motionmixerconv_tpu.'))]\n"
+        "assert len(names) >= 10, names\n"
+        "assert not bad, bad\n"
+        "print('ok', len(names))\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.startswith("ok")
+
+
+def test_chip_smoke_imports_no_jax():
+    with open(os.path.join(REPO, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    mods = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            mods.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            mods.add(node.module)
+    roots = {m.split(".")[0] for m in mods}
+    assert not roots & {"jax", "flax", "motionmixerconv_tpu"}, roots
+
+
+def test_chip_smoke_fails_without_a_card():
+    """No CUDA device: the script exits non-zero and prints no result line."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present; chip_smoke.py would run for real")
+    res = subprocess.run([sys.executable, os.path.join(REPO, "chip_smoke.py")],
+                         cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert res.returncode != 0
+    assert '"ok": true' not in res.stdout

@@ -8,15 +8,23 @@ Phases, one line each: [1] device and settings, [2] kernel build from
 ``motionmixerconv_tpu_torch/csrc``, [3] the fused ConvMixer core (B2) against
 its plain version, [4] the harmonic encoder forward (B1) against its plain
 version, [5] the flagship H36M ConvMixer served end to end over HTTP (launch
-counts reset just before and read just after), [6] times. Then one JSON line
-with every kernel's numbers, the card's name and power limit, and the result
-line. Any failure exits non-zero; with no CUDA device, or with the port's
-package missing beside this script, it exits at once and prints no result.
+counts reset just before and read just after), [6] serving times, [7] the
+harmonic encoder backward (B1-bwd) against its plain version, twice for
+bit-identity, [8] one flagship training step with the fused encoder against
+the plain one, [9] the training CLI (``--loss_type mpjpe --fused_encoder``,
+2 epochs at the defaults) on a synthetic H36M corpus, its checkpoint served
+through B2 (launch counts reset just before and read just after), [10]
+training times. Then one JSON line with every kernel's numbers, the card's
+name and power limit, and the result line. Any failure exits non-zero; with
+no CUDA device, or with the port's package missing beside this script, it
+exits at once and prints no result.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
+import shutil
 import statistics
 import subprocess
 import sys
@@ -29,6 +37,21 @@ SEED = 0
 TOL_B2 = 1e-4    # f32, kernel and plain version sum in different orders
 TOL_B1 = 1e-4    # f32, an 8448-term contraction summed in different orders
 TOL_E2E = 1e-4   # kernel path against the plain nn.Module forward
+# B1-bwd against its plain version, relative to the largest reference value:
+# dW and db are sums over R rows, dx a sum over 64 harmonics dominated by
+# f_63 ~ 9e17, all in f32 in different orders
+TOL_B1_BWD = 1e-5
+# one training step, fused encoder against plain: the loss relative, each
+# parameter's gradient relative to that gradient's largest element, floored
+# at STEP_FLOOR of the largest gradient in the tree: encoder.channelUpscaling
+# .bias has an exact gradient of 0 (the next LayerNorm removes a uniform
+# shift), so each of its f32 values is rounding noise of the 25,000-term sum
+TOL_STEP = 1e-4
+STEP_FLOOR = 1e-2
+B1_BWD_ROWS = (500, 2560)  # a train step at batch 50; the 256-row bulk batch
+TRAIN_BATCH = 50
+CORPUS_FRAMES = 400  # frames per synthetic H36M sequence (~24,900 train windows)
+TRAIN_ARGV = ["--loss_type", "mpjpe"]  # the training CLI at its defaults
 B2_BATCHES = (1, 7, 32, 128)
 BULK_ROWS = 256
 DEVICE = "cuda:0"  # the one card the script needs
@@ -122,6 +145,60 @@ def device_us(torch, fn, kernel: str, reps: int = 20):
     return total / count if count and total > 0 else None
 
 
+def profile_train_steps(torch, dev, steps: int = 20) -> str:
+    """Host ms per flagship training step (fused encoder, batch 50), and
+    from a torch.profiler trace of the same steps the device kernels per
+    step, their device time per step, the device's idle share, and the
+    kernels that take most of it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from motionmixerconv_tpu_torch.data.constants import H36M_DIM_USED_XYZ
+    from motionmixerconv_tpu_torch.models import ConvMixer
+    from motionmixerconv_tpu_torch.train import Trainer, make_optimizer
+
+    gen = torch.Generator().manual_seed(SEED + 6)
+    model = ConvMixer(**FLAGSHIP, encoder_fused=True, generator=gen).to(dev)
+    trainer = Trainer(model, make_optimizer(model.parameters(), lr=1e-3),
+                      loss_type="mpjpe", dim_used=H36M_DIM_USED_XYZ,
+                      input_n=10, output_n=25, input_scale=1e-3)
+    frames = (torch.randn(5000, 96, generator=gen) * 300.0).to(dev)
+    starts = torch.randint(0, 5000 - 35, (2 * steps, TRAIN_BATCH),
+                           generator=gen).to(dev)
+    w = torch.ones(TRAIN_BATCH, device=dev)
+    model.train()
+    for i in range(steps):
+        trainer.train_step(frames, starts[i], w)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(steps, 2 * steps):
+        trainer.train_step(frames, starts[i], w)
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) / steps * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(steps):
+            trainer.train_step(frames, starts[i], w)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    # device events, less the user-annotation ranges (e.g. Optimizer.step)
+    # that the profiler also draws on the device timeline
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    if not kernels:
+        return f"host {host_ms:.3f} ms/step; device time not measured"
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    busy_us = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    return (f"host {host_ms:.3f} ms/step; profiled {wall_us / steps / 1e3:.3f} "
+            f"ms/step, {len(kernels) / steps:.0f} kernels/step, device busy "
+            f"{busy_us / steps / 1e3:.3f} ms/step, idle share "
+            f"{1 - busy_us / wall_us:.3f}; top device time per step: "
+            + "; ".join(f"{n[:60]} {t / steps:.1f} us" for n, t in top))
+
+
 def b2_work(spec, batch: int, n_weights: int):
     """(bytes, operations) the fused ConvMixer core needs for ``batch``
     samples: each input, weight and output element moved once; every
@@ -157,6 +234,22 @@ def b1_work(rows: int, d: int, n: int, e: int, impl: str):
     return nbytes, ops
 
 
+def b1_bwd_work(rows: int, d: int, n: int, e: int, impl: str, with_dx: bool):
+    """(bytes, operations) of the fused harmonic backward for ``rows`` rows:
+    dW and db always, dx when asked; each harmonic's features counted once."""
+    nbytes = 4 * (rows * d + rows * e + n + 2 * n * d * e + e)
+    ops = 2 * rows * (2 * n * d) * e + rows * e  # dW = feat^T g, db
+    if impl == "direct":
+        ops += rows * d * n * 3                  # angle, sin, cos
+    else:
+        ops += rows * d * 3 + rows * d * (n - 1) * 9
+    if with_dx:
+        nbytes += 4 * (2 * n * d * e + rows * d)  # the weight in, dx out
+        ops += 2 * rows * (2 * n * d) * e         # g Ws^T, g Wc^T
+        ops += rows * d * n * 5                   # f (c gs - s gc), summed
+    return nbytes, ops
+
+
 def bound(nbytes: int, ops: int):
     t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -176,6 +269,7 @@ def post(base: str, path: str, payload: dict) -> dict:
 
 
 def main() -> None:
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -396,6 +490,225 @@ def main() -> None:
         + f" | bound ms: B2 B=128 {bound_b2:.6f} ({by_b2}), "
           f"B1 R={rows} {bound_b1:.6f} ({by_b1})")
 
+    # [7] B1-bwd against its plain version, twice for bit-identity
+    gg = torch.Generator().manual_seed(SEED + 3)
+    g_all = torch.randn(max(B1_BWD_ROWS), 50, generator=gg).to(dev)
+    bwd_err = {"dW": 0.0, "db": 0.0, "dx_rel": 0.0}
+    parts = []
+    with torch.no_grad():
+        for impl in ("direct", "doubling"):
+            for rows in B1_BWD_ROWS:
+                x2d = x_all.reshape(-1, 66)[:rows].contiguous()
+                gr = g_all[:rows].contiguous()
+                got = harmonic.harmonic_dense_bwd(x2d, gr, w, freqs, impl, wi)
+                again = harmonic.harmonic_dense_bwd(x2d, gr, w, freqs, impl, wi)
+                want = harmonic.harmonic_dense_bwd_plain(x2d, gr, w, freqs, impl)
+                torch.cuda.synchronize()
+                if not all(torch.isfinite(t).all() for t in got):
+                    fail(f"B1-bwd {impl} R={rows}: non-finite output")
+                if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                    fail(f"B1-bwd {impl} R={rows}: two launches differ")
+                errs = {}
+                for name, a, b in zip(("dx", "dW", "db"), got, want):
+                    err = float((a - b).abs().max())
+                    scale = float(b.abs().max())
+                    if not err <= TOL_B1_BWD * scale:
+                        fail(f"B1-bwd {impl} R={rows} {name}: {err:.3e} > "
+                             f"{TOL_B1_BWD:g} x max|ref| {scale:.3e}")
+                    errs[name] = (err, err / scale)
+                bwd_err["dW"] = max(bwd_err["dW"], errs["dW"][0])
+                bwd_err["db"] = max(bwd_err["db"], errs["db"][0])
+                bwd_err["dx_rel"] = max(bwd_err["dx_rel"], errs["dx"][1])
+                parts.append(f"{impl} R={rows} dW {errs['dW'][0]:.3e} db "
+                             f"{errs['db'][0]:.3e} dx/max|dx| {errs['dx'][1]:.3e}")
+    say(f"[7 B1-bwd harmonic_dense_bwd vs plain] max abs err dW "
+        f"{bwd_err['dW']:.3e}, db {bwd_err['db']:.3e}; dx err / max|dx| "
+        f"{bwd_err['dx_rel']:.3e} (tol {TOL_B1_BWD:g} x max|ref| each); "
+        "second launch bit-identical | " + " ; ".join(parts))
+
+    # [8] one flagship training step, fused encoder against plain
+    step_cfg = dict(FLAGSHIP, regularization=0.0)  # dropout off
+    plain_m = ConvMixer(**step_cfg, generator=torch.Generator().manual_seed(SEED + 4))
+    fused_m = ConvMixer(**step_cfg, encoder_fused=True)
+    fused_m.load_state_dict(plain_m.state_dict(), strict=True)
+    plain_m, fused_m = plain_m.to(dev).train(), fused_m.to(dev).train()
+    gs = torch.Generator().manual_seed(SEED + 5)
+    seq = (torch.randn(TRAIN_BATCH, 35, 66, generator=gs) * 300.0).to(dev)
+    step_out = {}
+    for tag, m in (("plain", plain_m), ("fused", fused_m)):
+        counts = (harmonic.LAUNCHES.value, harmonic.LAUNCHES_BWD.value)
+        pred = m(seq[:, :10] * 1e-3)
+        diff = (seq[:, 10:] - pred).reshape(TRAIN_BATCH, -1, 3)
+        loss = torch.linalg.norm(diff, dim=-1).mean()
+        loss.backward()
+        torch.cuda.synchronize()
+        step_out[tag] = (float(loss.detach()),
+                         {k: p.grad for k, p in m.named_parameters()},
+                         (harmonic.LAUNCHES.value - counts[0],
+                          harmonic.LAUNCHES_BWD.value - counts[1]))
+    if step_out["fused"][2] != (1, 1) or step_out["plain"][2] != (0, 0):
+        fail(f"training step launches (fwd, bwd): fused {step_out['fused'][2]}, "
+             f"plain {step_out['plain'][2]}; expected (1, 1) and (0, 0)")
+    loss_rel = abs(step_out["fused"][0] - step_out["plain"][0]) / abs(step_out["plain"][0])
+    grad_rel = {}
+    tree_max = max(float(gp.abs().max()) for gp in step_out["plain"][1].values())
+    for k, gp in step_out["plain"][1].items():
+        gf = step_out["fused"][1][k]
+        scale = max(float(gp.abs().max()), STEP_FLOOR * tree_max)
+        grad_rel[k] = float((gf - gp).abs().max()) / scale
+    worst = max(grad_rel, key=grad_rel.get)
+    say(f"[8 train step fused vs plain] batch {TRAIN_BATCH}, dropout off | loss "
+        f"{step_out['plain'][0]:.6f} vs {step_out['fused'][0]:.6f} (rel "
+        f"{loss_rel:.3e}) | {len(grad_rel)} gradients, worst max|diff| / "
+        f"max(max|grad|, {STEP_FLOOR:g} x {tree_max:.3e}) {grad_rel[worst]:.3e} at "
+        f"{worst}; encoder.embed_mlp.weight "
+        f"{grad_rel['encoder.embed_mlp.weight']:.3e} (tol {TOL_STEP:g} each)")
+    if not loss_rel <= TOL_STEP:
+        fail(f"training step loss: fused and plain differ by {loss_rel:.3e}")
+    for k, v in grad_rel.items():
+        if not v <= TOL_STEP:
+            fail(f"training step gradient {k}: {v:.3e} > {TOL_STEP:g}")
+    del plain_m, fused_m, step_out
+
+    # [9] the training path: the CLI on a synthetic corpus, 2 epochs
+    from motionmixerconv_tpu_torch.cli import _runner, train_mixer_h36m
+    from motionmixerconv_tpu_torch.data import H36MDataset, fixtures
+
+    work = ROOT / "build" / "chip_smoke"
+    data_dir = work / "h36m"
+    t0 = time.perf_counter()
+    shutil.rmtree(data_dir, ignore_errors=True)
+    fixtures.make_h36m_corpus(str(data_dir), n_frames=CORPUS_FRAMES, seed=SEED)
+    corpus_s = time.perf_counter() - t0
+    args = train_mixer_h36m.parse_args([*TRAIN_ARGV, "--data_dir", str(data_dir)])
+    n_train = len(H36MDataset(str(data_dir), args.input_n, args.output_n,
+                              args.skip_rate, split=0))
+    steps_per_epoch = -(-n_train // args.batch_size)
+    steps = args.n_epochs * steps_per_epoch
+    runs = {}
+    for tag, extra in (("fused", ["--fused_encoder"]), ("plain", [])):
+        save = work / f"runs_{tag}"
+        shutil.rmtree(save, ignore_errors=True)
+        argv = [*TRAIN_ARGV, *extra, "--data_dir", str(data_dir),
+                "--save_path", str(save)]
+        if tag == "fused":
+            for c in (conv_mixer.LAUNCHES, harmonic.LAUNCHES, harmonic.LAUNCHES_BWD):
+                c.reset()
+        t0 = time.perf_counter()
+        hist = train_mixer_h36m.main(argv)
+        runs[tag] = (hist, time.perf_counter() - t0,
+                     save / "h36_3d_25frames_ckpt" / _runner.WEIGHTS_FILE, argv)
+        if tag == "fused":
+            # serve the trained checkpoint through B2, still on the path
+            args = train_mixer_h36m.parse_args(argv)
+            served = Predictor.from_checkpoint(
+                _runner.build_conv_mixer(args, 66, 66, 10, 25), str(runs[tag][2]),
+                device=dev)
+            test_ds = H36MDataset(str(data_dir), 10, 25, 1, actions=["walking"],
+                                  split=2)
+            dim_used = test_ds.dim_used
+            win = torch.as_tensor(np.stack([test_ds[i] for i in range(32)]))
+            x_test = (win[:, :10, dim_used] * 1e-3).contiguous()
+            got = served.predict(x_test)
+            torch.cuda.synchronize()
+            train_launches = {"conv_mixer_fused": conv_mixer.LAUNCHES.value,
+                              "harmonic_dense_fwd": harmonic.LAUNCHES.value,
+                              "harmonic_dense_bwd": harmonic.LAUNCHES_BWD.value}
+            plain_net = _runner.build_conv_mixer(
+                argparse.Namespace(**{**vars(args), "fused_encoder": False}),
+                66, 66, 10, 25)
+            plain_net.load_state_dict(torch.load(runs[tag][2], weights_only=True),
+                                      strict=True)
+            with torch.no_grad():
+                want = plain_net.to(dev).eval()(x_test.to(dev))
+            # trained outputs are in mm (hundreds): the error is taken
+            # relative to the output's scale
+            serve_scale = max(1.0, float(want.abs().max()))
+            serve_err = float((got - want).abs().max()) / serve_scale
+    hist = runs["fused"][0]
+    values = [*hist["train"], *hist["val"], *hist["test"],
+              *hist["metrics"]["mpjpe"], *hist["metrics"]["auc_pck"]]
+    say(f"[9 train CLI --loss_type mpjpe --fused_encoder] corpus written in "
+        f"{corpus_s:.1f} s, {n_train} train windows, batch {args.batch_size} | train loss {hist['train']} | val {hist['val']} | "
+        f"mpjpe {[float(v) for v in hist['metrics']['mpjpe']]} | auc_pck "
+        f"{[float(v) for v in hist['metrics']['auc_pck']]} | launches on the "
+        f"training path {train_launches} for {steps} train steps | trained "
+        f".pt served through B2 (b=32 test windows) vs the plain forward: "
+        f"max abs err / max(1, max|out| = {serve_scale:.1f}) {serve_err:.3e} "
+        f"(tol {TOL_E2E:g}) | plain-encoder run train loss "
+        f"{runs['plain'][0]['train']}")
+    if not all(np.isfinite(float(v)) for v in values):
+        fail(f"non-finite loss or metric in {values}")
+    if not hist["train"][1] < hist["train"][0]:
+        fail(f"train loss did not fall: {hist['train']}")
+    for k in ("harmonic_dense_fwd", "harmonic_dense_bwd"):
+        if train_launches[k] < steps:
+            fail(f"{k} launched {train_launches[k]} times for {steps} train steps")
+    if train_launches["conv_mixer_fused"] < 1:
+        fail("the trained checkpoint was not served through B2")
+    if got.shape != (32, 25, 66) or not serve_err <= TOL_E2E:
+        fail(f"served checkpoint: shape {tuple(got.shape)}, err {serve_err:.3e}")
+
+    # [10] training times (host clock around work ending in a host read;
+    # kernels by CUDA events and the profiler)
+    per = {}
+    for tag in ("fused", "plain"):
+        h = runs[tag][0]
+        per[tag] = {"train_s": h["train_s"], "epoch_s": h["epoch_s"],
+                    "samples_per_s": [n_train / t for t in h["train_s"]],
+                    "step_ms": [t / steps_per_epoch * 1e3 for t in h["train_s"]],
+                    "run_s": runs[tag][1]}
+    bwd_t = {}
+    with torch.no_grad():
+        for rows in B1_BWD_ROWS:
+            x2d = x_all.reshape(-1, 66)[:rows].contiguous()
+            gr = g_all[:rows].contiguous()
+            for dx_on in (False, True):
+                bwd_t[(rows, dx_on)] = (
+                    cuda_ms(torch, lambda: harmonic.harmonic_dense_bwd(
+                        x2d, gr, w, freqs, "direct", wi, need_dx=dx_on), reps=10),
+                    cuda_ms(torch, lambda: harmonic.harmonic_dense_bwd_plain(
+                        x2d, gr, w, freqs, "direct", need_dx=dx_on), reps=10),
+                    bound(*b1_bwd_work(rows, 66, 64, 50, "direct", dx_on)),
+                )
+            bwd_t[(rows, "doubling")] = cuda_ms(
+                torch, lambda: harmonic.harmonic_dense_bwd(
+                    x2d, gr, w, freqs, "doubling", wi, need_dx=False), reps=10)
+        r0 = B1_BWD_ROWS[0]  # the training step's rows
+        x_r0 = x_all.reshape(-1, 66)[:r0].contiguous()
+        g_r0 = g_all[:r0].contiguous()
+        bwd_dev = {
+            f"{name} R={r0}": device_us(
+                torch, lambda: harmonic.harmonic_dense_bwd(
+                    x_r0, g_r0, w, freqs, "direct", wi, need_dx=True),
+                kern, reps=5)
+            for name, kern in (("dW+db", "harmonic_dense_bwd_dw_kernel"),
+                               ("dx", "harmonic_dense_bwd_dx_kernel"))}
+        fwd_r0 = cuda_ms(torch, lambda: harmonic.harmonic_dense_fwd(
+            x_r0, w, bias, freqs, "direct", wi), reps=10)
+    step_prof = profile_train_steps(torch, dev)
+    say(f"[10 train times] {card} | per epoch (epoch 0, epoch 1): "
+        + " ; ".join(
+            f"{t}: train s {p['train_s'][0]:.3f}, {p['train_s'][1]:.3f} | "
+            f"epoch s (train+val+test+ckpt) {p['epoch_s'][0]:.3f}, "
+            f"{p['epoch_s'][1]:.3f} | train samples/s {p['samples_per_s'][0]:.1f}, "
+            f"{p['samples_per_s'][1]:.1f} | step ms {p['step_ms'][0]:.3f}, "
+            f"{p['step_ms'][1]:.3f} | whole CLI run s {p['run_s']:.2f}"
+            for t, p in per.items())
+        + " | B1-bwd direct kernel/plain ms (bound ms, by): "
+        + " ; ".join(
+            f"R={r} {'dW+db+dx' if d else 'dW+db'} {k:.4f}/{p:.4f} "
+            f"({b[0]:.5f}, {b[1]})"
+            for (r, d), v in bwd_t.items() if d != "doubling" for k, p, b in [v])
+        + " | B1-bwd doubling dW+db kernel ms: "
+        + " ; ".join(f"R={r} {v:.4f}" for (r, d), v in bwd_t.items()
+                     if d == "doubling")
+        + " | profiler device us/launch: " + " ; ".join(
+            f"{k} {'not measured' if v is None else f'{v:.2f}'}"
+            for k, v in bwd_dev.items())
+        + f" | B1-fwd direct R={r0} kernel ms {fwd_r0:.4f}"
+        + f" | profiled train steps (fused, batch {TRAIN_BATCH}): {step_prof}")
+
     kernels = [
         {"name": "conv_mixer_fused", "route": "cuda",
          "source": "motionmixerconv_tpu_torch/csrc/conv_mixer_fused.cu",
@@ -409,7 +722,23 @@ def main() -> None:
          "launches": launches["harmonic_dense_fwd"], "max_abs_err": b1_err,
          "ms": b1["direct"][0], "plain_ms": b1["direct"][1], "bound_ms": bound_b1,
          "bound_by": by_b1, "library_ms": None},
+        {"name": "harmonic_dense_bwd", "route": "cuda",
+         "source": "motionmixerconv_tpu_torch/csrc/harmonic_dense.cu",
+         "replaces": "motionmixerconv_tpu/ops/pallas_harmonic.py:104",
+         "launches": train_launches["harmonic_dense_bwd"],
+         "max_abs_err": max(bwd_err["dW"], bwd_err["db"]),
+         "dx_err_over_max": bwd_err["dx_rel"],
+         "ms": bwd_t[(r0, False)][0], "plain_ms": bwd_t[(r0, False)][1],
+         "bound_ms": bwd_t[(r0, False)][2][0],
+         "bound_by": bwd_t[(r0, False)][2][1], "library_ms": None,
+         "rows": r0,
+         "with_dx": {"ms": bwd_t[(r0, True)][0],
+                     "plain_ms": bwd_t[(r0, True)][1],
+                     "bound_ms": bwd_t[(r0, True)][2][0]}},
     ]
+    for k in kernels:
+        k["launches_by_path"] = {"serve": launches.get(k["name"], 0),
+                                 "train": train_launches[k["name"]]}
     say(json.dumps({"kernels": kernels}))
     say(card)
     say(json.dumps({"ok": True, "device": {

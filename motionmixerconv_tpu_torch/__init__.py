@@ -7,7 +7,12 @@ that serves CPU tensors.
 
 - ``models``   — PoseEncoder and ConvMixer with the reference state_dict names
 - ``ops``      — activations and the CUDA kernels' wrappers
-- ``train``    — the autoregressive rollout
+- ``data``     — H36M constants, synthetic corpus, windows, the dataset
+- ``geometry`` — rotations and H36M forward kinematics
+- ``metrics``  — losses and evaluation metrics
+- ``train``    — optimizer, checkpoints, the Trainer, the autoregressive rollout
+- ``logging``  — MetricLogger
+- ``cli``      — ``python -m motionmixerconv_tpu_torch.cli.train_mixer_h36m``
 - ``serving``  — Predictor; ``serving_server`` — micro-batching HTTP server
 """
 

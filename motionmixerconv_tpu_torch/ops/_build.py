@@ -1,8 +1,9 @@
 """Build and load the hand-written CUDA kernels at first use.
 
-Every ``csrc/*.cu`` is compiled and linked by one ``nvcc`` call for
-``sm_90a`` into one shared library with a plain C interface, loaded with
-``ctypes``; no source includes PyTorch's headers. The library lands in ``build/torch_kernels/`` at the repository
+Every ``csrc/*.cu`` is compiled for ``sm_90a`` by its own ``nvcc``, all
+started together, and the objects are linked into one shared library with
+a plain C interface, loaded with ``ctypes``; no source includes PyTorch's
+headers. The library lands in ``build/torch_kernels/`` at the repository
 root (listed in ``.gitignore``), named by a hash of the sources and flags,
 so an unchanged tree reuses it and a changed one rebuilds. A failed build
 raises; nothing falls back to the plain versions.
@@ -61,18 +62,37 @@ def _nvcc() -> str:
     return found
 
 
+def _run_all(cmds) -> str:
+    """Start every command at once, wait for all; raise if any failed.
+    Returns their output, in order."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed: {' '.join(cmd)}\n{out}")
+    return "".join(outs)
+
+
 def _compile(lib_path: Path) -> str:
-    """Every source into ``lib_path`` with one nvcc call; returns its log."""
+    """Every source into ``lib_path``: one nvcc per source, all started
+    together, then one link; returns their log."""
+    nvcc = _nvcc()
     tmp = lib_path.with_name(f".{lib_path.name}.{os.getpid()}")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp),
-           *map(str, sorted(CSRC.glob("*.cu")))]
-    res = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                         text=True)
-    if res.returncode != 0:
+    srcs = sorted(CSRC.glob("*.cu"))
+    objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in srcs]
+    try:
+        log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
+                        for src, o in zip(srcs, objs)])
+        log += _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                          *map(str, objs)]])
+        os.replace(tmp, lib_path)
+    finally:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed: {' '.join(cmd)}\n{res.stdout}")
-    os.replace(tmp, lib_path)
-    return res.stdout
+        for o in objs:
+            o.unlink(missing_ok=True)
+    return log
 
 
 def _declare(lib) -> None:
@@ -91,6 +111,12 @@ def _declare(lib) -> None:
     lib.mmc_harmonic_smem_bytes.restype = L
     lib.mmc_harmonic_dense_fwd.argtypes = [p] * 5 + [i] * 6 + [p]
     lib.mmc_harmonic_dense_fwd.restype = i
+    lib.mmc_harmonic_bwd_max_slab_outputs.argtypes = []
+    lib.mmc_harmonic_bwd_max_slab_outputs.restype = i
+    lib.mmc_harmonic_bwd_smem_bytes.argtypes = [i, i, i]
+    lib.mmc_harmonic_bwd_smem_bytes.restype = L
+    lib.mmc_harmonic_dense_bwd.argtypes = [p] * 7 + [i] * 6 + [p]
+    lib.mmc_harmonic_dense_bwd.restype = i
 
 
 def load_library():

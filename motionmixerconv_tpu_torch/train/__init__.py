@@ -1,3 +1,14 @@
 from .autoregressive import autoregressive_rollout, rollout_starts
+from .loop import Trainer
+from .optim import Optimizer, make_optimizer
+from .state import restore_checkpoint, save_checkpoint
 
-__all__ = ["autoregressive_rollout", "rollout_starts"]
+__all__ = [
+    "autoregressive_rollout",
+    "rollout_starts",
+    "Trainer",
+    "Optimizer",
+    "make_optimizer",
+    "save_checkpoint",
+    "restore_checkpoint",
+]

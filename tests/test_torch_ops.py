@@ -178,16 +178,91 @@ def test_encoder_keeps_the_kernel_weight_until_it_changes():
         rtol=0, atol=0)
 
 
-def test_harmonic_backward_raises():
-    """No backward kernel yet: differentiating raises instead of falling
-    back to autograd through the plain version."""
-    x, k, b = _harmonic_case(8, 5, 7, 3)
+@pytest.mark.parametrize("impl", ["direct", "doubling"])
+@pytest.mark.parametrize("rows,d,e,n", [
+    (24, 11, 9, 6),
+    (24, 11, 9, 1),     # single harmonic
+    (40, 66, 50, 8),
+])
+def test_harmonic_backward_plain_matches_pallas_vjp(impl, rows, d, e, n):
+    """B1-bwd: the autograd Function's CPU backward (the plain version)
+    against the VJP of make_fused_harmonic_dense in interpret mode, for dx,
+    dW and db, at that kernel test's tolerance."""
+    x, k, b = _harmonic_case(rows, d, e, n, seed=1)
+    g = np.random.RandomState(2).randn(rows, e).astype(np.float32)
+    fn = make_fused_harmonic_dense(d, e, n, 0.1, tile_rows=8,
+                                   interpret=True, impl=impl)
+    _, vjp = jax.vjp(fn, jnp.asarray(x), jnp.asarray(k), jnp.asarray(b))
+    want_dx, want_dk, want_db = (np.asarray(a) for a in vjp(jnp.asarray(g)))
+
+    freqs = PoseEncoder(d, e, n_harmonic_functions=n, omega0=0.1).frequencies
     xt = torch.from_numpy(x).requires_grad_(True)
+    wt = torch.from_numpy(k.T.copy()).requires_grad_(True)
+    bt = torch.from_numpy(b).requires_grad_(True)
+    out = harmonic.harmonic_dense(xt, wt, bt, freqs, impl)
+    before = harmonic.PLAIN_CALLS.value
+    out.backward(torch.from_numpy(g))
+    assert harmonic.PLAIN_CALLS.value == before + 1
+    for name, got, want in (("dx", xt.grad.numpy(), want_dx),
+                            ("dW", wt.grad.numpy().T, want_dk),
+                            ("db", bt.grad.numpy(), want_db)):
+        np.testing.assert_allclose(got, want, atol=5e-4, rtol=1e-4,
+                                   err_msg=name)
+
+
+def test_harmonic_backward_skips_dx_for_data_inputs():
+    """With an input that needs no gradient (training: x is data) the
+    backward returns no dx, and the weight gradients are unchanged."""
+    x, k, b = _harmonic_case(12, 5, 7, 3)
     freqs = PoseEncoder(5, 7, n_harmonic_functions=3).frequencies
-    out = harmonic.harmonic_dense(xt, torch.from_numpy(k.T.copy()),
-                                  torch.from_numpy(b), freqs)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        out.sum().backward()
+    grads = []
+    for need_x in (True, False):
+        xt = torch.from_numpy(x).requires_grad_(need_x)
+        wt = torch.from_numpy(k.T.copy()).requires_grad_(True)
+        bt = torch.from_numpy(b).requires_grad_(True)
+        harmonic.harmonic_dense(xt, wt, bt, freqs).square().sum().backward()
+        assert (xt.grad is not None) == need_x
+        grads.append((wt.grad, bt.grad))
+    for a, b_ in zip(*grads):
+        torch.testing.assert_close(a, b_, rtol=0, atol=0)
+
+
+def test_doubling_backward_uses_the_recurrence_features():
+    """Past harmonic ~26 the doubling recurrence's features are f32 noise
+    unlike direct trig's, so the two impls' gradients part. The doubling
+    backward is the analytic formula at the recurrence's own features; at
+    these inputs it agrees with autograd through the plain doubling forward
+    to rounding (measured ~4e-7 of max|dx| up to n = 64), and not with the
+    direct impl's gradient."""
+    rows, d, e, n = 16, 4, 5, 40
+    x, k, b = _harmonic_case(rows, d, e, n)
+    g = torch.from_numpy(np.random.RandomState(3).randn(rows, e).astype(np.float32))
+    xt, wt = torch.from_numpy(x), torch.from_numpy(k.T.copy())
+    freqs = PoseEncoder(d, e, n_harmonic_functions=n).frequencies
+    dx = {impl: harmonic.harmonic_dense_bwd_plain(xt, g, wt, freqs, impl)[0]
+          for impl in ("direct", "doubling")}
+    xa = xt.clone().requires_grad_(True)
+    harmonic.harmonic_dense_plain(xa, wt, torch.from_numpy(b), freqs,
+                                  "doubling").backward(g)
+    scale = dx["doubling"].abs().max()
+    assert (xa.grad - dx["doubling"]).abs().max() < 1e-5 * scale
+    assert (dx["direct"] - dx["doubling"]).abs().max() > 0.1 * scale
+
+
+def test_harmonic_backward_raises():
+    """Differentiating on a device without a kernel raises: the backward
+    never serves a non-CPU tensor with its plain version."""
+    x, k, b = _harmonic_case(8, 5, 7, 3)
+    freqs = PoseEncoder(5, 7, n_harmonic_functions=3).frequencies
+    g = torch.ones(8, 7)
+    args = [torch.from_numpy(x), g, torch.from_numpy(k.T.copy()), freqs]
+    before = (harmonic.PLAIN_CALLS.value, harmonic.LAUNCHES_BWD.value)
+    with pytest.raises(RuntimeError, match="no kernel for meta"):
+        harmonic.harmonic_dense_bwd(*[_meta(a) for a in args])
+    assert (harmonic.PLAIN_CALLS.value, harmonic.LAUNCHES_BWD.value) == before
+    with pytest.raises(ValueError, match="expected g"):
+        harmonic.harmonic_dense_bwd(args[0], g[:, :-1].contiguous(),
+                                    *args[2:])
 
 
 def _meta(t):

@@ -14,7 +14,13 @@ bit-identity, [8] one flagship training step with the fused encoder against
 the plain one, [9] the training CLI (``--loss_type mpjpe --fused_encoder``,
 2 epochs at the defaults) on a synthetic H36M corpus, its checkpoint served
 through B2 (launch counts reset just before and read just after), [10]
-training times. Then one JSON line with every kernel's numbers, the card's
+training times, [11] the multi-channel ConvMixer core (B3) against its
+plain version at the autoregressive and study shapes, twice for
+bit-identity, [12] the autoregressive training CLI (``--loss_type mpjpe``,
+one teacher-forcing and one closed-loop epoch at the default widths), its
+``train_state.pt`` rebuilt and served through B3 in process and over HTTP
+(launch counts reset just before and read just after), [13]
+autoregressive training times. Then one JSON line with every kernel's numbers, the card's
 name and power limit, and the result line. Any failure exits non-zero; with
 no CUDA device, or with the port's package missing beside this script, it
 exits at once and prints no result.
@@ -53,6 +59,12 @@ TRAIN_BATCH = 50
 CORPUS_FRAMES = 400  # frames per synthetic H36M sequence (~24,900 train windows)
 TRAIN_ARGV = ["--loss_type", "mpjpe"]  # the training CLI at its defaults
 B2_BATCHES = (1, 7, 32, 128)
+TOL_B3 = 1e-4    # f32, the convolutions' C*kh*kw-term sums in different orders
+B3_BATCHES = (1, 7, 32, 128)
+# the autoregressive CLI on the card: one teacher-forcing epoch, then one
+# closed-loop epoch, at the CLI's default widths
+AR_ARGV = ["--loss_type", "mpjpe", "--n_epochs", "2",
+           "--n_epochs_teacher_forcing", "1", "--skip_rate", "5"]
 BULK_ROWS = 256
 DEVICE = "cuda:0"  # the one card the script needs
 # H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores, HBM3
@@ -66,6 +78,31 @@ FLAGSHIP = dict(
     conv1_padding=(0, 1), mode_conv="twice", activation="mish",
     regularization=0.1, use_se=True, r_se=8, encoder_n_harmonic_functions=64,
     encoder_omega0=0.1)
+
+# the autoregressive CLI's default model (train_autoreg_mixer_h36m.py mpjpe
+# defaults, bench.py:112-119) and the ConvMixer study's fixed shape
+# (bench.py:120-126); both serve through B3
+AUTOREG = dict(
+    num_blocks=4, dimPosIn=66, dimPosEmb=192, dimPosOut=66, in_nTP=10,
+    out_nTP=5, conv_nChan=8, conv1_kernel_shape=(5, 5), conv1_stride=(1, 1),
+    conv1_padding=None, mode_conv="twice", activation="mish",
+    regularization=-1.0, use_se=True, r_se=8, use_max_pooling=False,
+    encoder_n_harmonic_functions=0, encoder_omega0=0.1)
+STUDY = dict(AUTOREG, num_blocks=6, out_nTP=10, conv1_kernel_shape=(5, 9),
+             mode_conv="once", activation="gelu", regularization=0.1)
+
+
+def warm_batchnorm(torch, model, gen):
+    """``model`` with random BatchNorm affines and running stats, so that the
+    folded inference affine is not the identity."""
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.weight.uniform_(0.5, 1.5, generator=gen)
+                m.bias.uniform_(-0.2, 0.2, generator=gen)
+                m.running_mean.uniform_(-0.5, 0.5, generator=gen)
+                m.running_var.uniform_(0.5, 1.5, generator=gen)
+    return model
 
 
 def fail(msg: str) -> None:
@@ -145,40 +182,26 @@ def device_us(torch, fn, kernel: str, reps: int = 20):
     return total / count if count and total > 0 else None
 
 
-def profile_train_steps(torch, dev, steps: int = 20) -> str:
-    """Host ms per flagship training step (fused encoder, batch 50), and
-    from a torch.profiler trace of the same steps the device kernels per
-    step, their device time per step, the device's idle share, and the
-    kernels that take most of it."""
+def profile_steps(torch, step, steps: int = 20) -> str:
+    """Host ms per training step of ``step(i)`` (i < 2 * steps), and from a
+    torch.profiler trace of ``steps`` of them the device kernels per step,
+    their device time per step, the device's idle share, and the kernels
+    that take most of it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from motionmixerconv_tpu_torch.data.constants import H36M_DIM_USED_XYZ
-    from motionmixerconv_tpu_torch.models import ConvMixer
-    from motionmixerconv_tpu_torch.train import Trainer, make_optimizer
-
-    gen = torch.Generator().manual_seed(SEED + 6)
-    model = ConvMixer(**FLAGSHIP, encoder_fused=True, generator=gen).to(dev)
-    trainer = Trainer(model, make_optimizer(model.parameters(), lr=1e-3),
-                      loss_type="mpjpe", dim_used=H36M_DIM_USED_XYZ,
-                      input_n=10, output_n=25, input_scale=1e-3)
-    frames = (torch.randn(5000, 96, generator=gen) * 300.0).to(dev)
-    starts = torch.randint(0, 5000 - 35, (2 * steps, TRAIN_BATCH),
-                           generator=gen).to(dev)
-    w = torch.ones(TRAIN_BATCH, device=dev)
-    model.train()
     for i in range(steps):
-        trainer.train_step(frames, starts[i], w)
+        step(i)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for i in range(steps, 2 * steps):
-        trainer.train_step(frames, starts[i], w)
+        step(i)
     torch.cuda.synchronize()
     host_ms = (time.perf_counter() - t0) / steps * 1e3
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for i in range(steps):
-            trainer.train_step(frames, starts[i], w)
+            step(i)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     # device events, less the user-annotation ranges (e.g. Optimizer.step)
@@ -199,16 +222,47 @@ def profile_train_steps(torch, dev, steps: int = 20) -> str:
             + "; ".join(f"{n[:60]} {t / steps:.1f} us" for n, t in top))
 
 
+def train_step_fn(torch, dev, trainer, seed: int, steps: int = 20):
+    """``step(i)``: one optimizer step of ``trainer`` on random windows of a
+    random (5000, 96) corpus in mm, batch TRAIN_BATCH; an
+    AutoregressiveTrainer steps closed loop."""
+    gen = torch.Generator().manual_seed(seed)
+    seq_len = trainer.seq_len
+    frames = (torch.randn(5000, 96, generator=gen) * 300.0).to(dev)
+    starts = torch.randint(0, 5000 - seq_len, (2 * steps, TRAIN_BATCH),
+                           generator=gen).to(dev)
+    w = torch.ones(TRAIN_BATCH, device=dev)
+    trainer.model.train()
+    if hasattr(trainer, "train_step_ar"):
+        return lambda i: trainer.train_step_ar(frames, starts[i], w, False)
+    return lambda i: trainer.train_step(frames, starts[i], w)
+
+
+def in_plane_taps(n: int, k: int) -> int:
+    """Taps of a width-``k`` 'same' stencil (torch's padding: floor((k-1)/2)
+    on the left) that fall inside the ``n`` positions, summed over the
+    outputs. Taps on the zero padding need no multiply-add."""
+    left = (k - 1) // 2
+    return sum(min(n, i - left + k) - max(0, i - left) for i in range(n))
+
+
+def conv_taps(spec, k) -> int:
+    """In-plane multiply-adds of one (kh, kw) 'same' stencil over a (T, E)
+    plane, for one input and one output channel."""
+    return in_plane_taps(spec.T, k[0]) * in_plane_taps(spec.E, k[1])
+
+
 def b2_work(spec, batch: int, n_weights: int):
     """(bytes, operations) the fused ConvMixer core needs for ``batch``
     samples: each input, weight and output element moved once; every
-    multiply, add, comparison and transcendental counted as one operation."""
+    multiply, add, comparison and transcendental counted as one operation
+    (stencil taps on the zero padding not counted)."""
     T, E, P, D, H = spec.T, spec.E, spec.P, spec.D, spec.H
     te = T * E
 
     def branch(k):
         ops = 7 * te                      # LayerNorm
-        ops += 2 * k[0] * k[1] * te + te  # stencil + bias
+        ops += 2 * conv_taps(spec, k) + te  # stencil + bias
         ops += 8 * te + 2 * te            # mish or GELU, BN affine
         if spec.use_se:
             ops += te + 4 * T * H + 4 * T + te  # squeeze, fc1/fc2, sigmoid, gate
@@ -220,6 +274,34 @@ def b2_work(spec, batch: int, n_weights: int):
         + 2 * P * E * D + P * D
     ops = batch * (spec.num_blocks * per_block + decoder)
     nbytes = 4 * (batch * T * E + n_weights + batch * P * D)
+    return nbytes, ops
+
+
+def b3_work(spec, batch: int, n_weights: int):
+    """(bytes, operations) the fused multi-channel ConvMixer core needs for
+    ``batch`` samples: each input, weight and output element moved once;
+    every multiply, add, comparison and transcendental counted as one
+    operation. The convolutions dominate: 2 * C * C multiply-adds per
+    in-plane tap (taps on the zero padding not counted)."""
+    C, T, E, P, D, H = spec.C, spec.T, spec.E, spec.P, spec.D, spec.H
+    n = C * T * E
+
+    def se_and_residual():
+        ops = (2 * n + 4 * T * H + 4 * T) if spec.use_se else 0
+        return ops + n
+
+    def branch(k):
+        ops = 7 * n                              # LayerNorm
+        ops += 2 * C * C * conv_taps(spec, k) + n  # the C x C conv, bias
+        ops += 8 * n + 2 * n                  # mish or GELU, BN affine
+        return ops + se_and_residual()
+
+    per_block = branch(spec.k1) + (branch(spec.k2) if spec.twice
+                                   else se_and_residual())
+    decoder = 7 * n + 2 * C * T * P * E + C * P * E + 2 * C * P * E \
+        + P * E + 8 * P * E + 2 * P * E * D + P * D
+    ops = batch * (spec.num_blocks * per_block + decoder)
+    nbytes = 4 * (batch * n + n_weights + batch * P * D)
     return nbytes, ops
 
 
@@ -282,7 +364,7 @@ def main() -> None:
     if Path(pkg.__file__).resolve().parent.parent != ROOT:
         fail(f"imported the port from {pkg.__file__}, not from {ROOT}")
     from motionmixerconv_tpu_torch.models import ConvMixer
-    from motionmixerconv_tpu_torch.ops import _build, conv_mixer, harmonic
+    from motionmixerconv_tpu_torch.ops import _build, conv_mixer, conv_mixer_mc, harmonic
     from motionmixerconv_tpu_torch.serving import Predictor
     from motionmixerconv_tpu_torch.serving_server import PredictionServer
 
@@ -311,15 +393,8 @@ def main() -> None:
     x_all = (torch.randn(BULK_ROWS, 10, 66, generator=gen) * 0.5).to(dev)
     bn_cfg = dict(FLAGSHIP, regularization=-1.0, use_max_pooling=True,
                   mode_conv="once")
-    bn_model = ConvMixer(**bn_cfg, generator=gen).eval()
-    with torch.no_grad():
-        for m in bn_model.modules():
-            if isinstance(m, torch.nn.BatchNorm2d):
-                m.weight.uniform_(0.5, 1.5, generator=gen)
-                m.bias.uniform_(-0.2, 0.2, generator=gen)
-                m.running_mean.uniform_(-0.5, 0.5, generator=gen)
-                m.running_var.uniform_(0.5, 1.5, generator=gen)
-    bn_model = bn_model.to(dev)
+    bn_model = warm_batchnorm(torch, ConvMixer(**bn_cfg, generator=gen).eval(),
+                              gen).to(dev)
     b2_err = 0.0
     parts = []
     with torch.no_grad():
@@ -686,7 +761,16 @@ def main() -> None:
                                ("dx", "harmonic_dense_bwd_dx_kernel"))}
         fwd_r0 = cuda_ms(torch, lambda: harmonic.harmonic_dense_fwd(
             x_r0, w, bias, freqs, "direct", wi), reps=10)
-    step_prof = profile_train_steps(torch, dev)
+    from motionmixerconv_tpu_torch.data.constants import H36M_DIM_USED_XYZ
+    from motionmixerconv_tpu_torch.train import Trainer, make_optimizer
+
+    model = ConvMixer(**FLAGSHIP, encoder_fused=True,
+                      generator=torch.Generator().manual_seed(SEED + 6)).to(dev)
+    step_prof = profile_steps(torch, train_step_fn(torch, dev, Trainer(
+        model, make_optimizer(model.parameters(), lr=1e-3), loss_type="mpjpe",
+        dim_used=H36M_DIM_USED_XYZ, input_n=10, output_n=25, input_scale=1e-3),
+        SEED + 6))
+    del model
     say(f"[10 train times] {card} | per epoch (epoch 0, epoch 1): "
         + " ; ".join(
             f"{t}: train s {p['train_s'][0]:.3f}, {p['train_s'][1]:.3f} | "
@@ -708,6 +792,161 @@ def main() -> None:
             for k, v in bwd_dev.items())
         + f" | B1-fwd direct R={r0} kernel ms {fwd_r0:.4f}"
         + f" | profiled train steps (fused, batch {TRAIN_BATCH}): {step_prof}")
+
+    # [11] B3 against its plain version: the autoregressive default (warmed
+    # BatchNorm stats) and the study shape, twice for bit-identity
+    lib = _build.load_library()
+    gb = torch.Generator().manual_seed(SEED + 7)
+    x_b3 = (torch.randn(128, 10, 66, generator=gb) * 0.5).to(dev)
+    b3_err, parts, b3_fused = 0.0, [], {}
+    with torch.no_grad():
+        for tag, cfg, batches in (("autoregressive", AUTOREG, B3_BATCHES),
+                                  ("study", STUDY, (7, 128))):
+            model = warm_batchnorm(torch, ConvMixer(**cfg, generator=gb).eval(),
+                                   gb).to(dev)
+            fused = conv_mixer.make_fused_conv_mixer(model)
+            if not isinstance(fused, conv_mixer_mc.FusedConvMixerMC):
+                fail(f"B3 {tag}: the factory returned {type(fused).__name__}")
+            spec = fused.spec
+            dims = (spec.C, spec.T, spec.E, spec.P, spec.D, spec.H,
+                    spec.num_blocks, *spec.k1, *spec.k2)
+            if (lib.mmc_conv_mixer_mc_weights_numel(*dims),
+                    lib.mmc_conv_mixer_mc_smem_bytes(*dims)) != (
+                    spec.numel(), spec.smem_bytes()):
+                fail(f"B3 {tag}: the kernel's weight layout or shared memory "
+                     "disagrees with ops/conv_mixer_mc.py")
+            y_all = fused.encoder(x_b3).permute(0, 3, 1, 2).contiguous()
+            b3_fused[tag] = (fused, y_all)
+            for b in batches:
+                y = y_all[:b].contiguous()
+                got = conv_mixer_mc.conv_mixer_mc_fused(y, fused.weights, spec)
+                again = conv_mixer_mc.conv_mixer_mc_fused(y, fused.weights, spec)
+                want = conv_mixer_mc.conv_mixer_mc_plain(y, fused.weights, spec)
+                torch.cuda.synchronize()
+                if not torch.isfinite(got).all():
+                    fail(f"B3 {tag} B={b}: non-finite output")
+                if not torch.equal(got, again):
+                    fail(f"B3 {tag} B={b}: two launches differ")
+                err = float((got - want).abs().max())
+                b3_err = max(b3_err, err)
+                parts.append(f"{tag} B={b} {err:.3e}")
+        if not b3_err <= TOL_B3:
+            fail(f"B3 disagrees with its plain version: {b3_err:.3e} > {TOL_B3:g}")
+        b3_t, b3_dev = {}, {}
+        for tag, (fused, y_all) in b3_fused.items():
+            spec, wts = fused.spec, fused.weights
+            for b in (1, 128):
+                y = y_all[:b].contiguous()
+                b3_t[(tag, b)] = (
+                    cuda_ms(torch, lambda: conv_mixer_mc.conv_mixer_mc_fused(
+                        y, wts, spec), reps=20),
+                    cuda_ms(torch, lambda: conv_mixer_mc.conv_mixer_mc_plain(
+                        y, wts, spec), reps=20),
+                    bound(*b3_work(spec, b, wts.numel())))
+            b3_dev[tag] = device_us(
+                torch, lambda: conv_mixer_mc.conv_mixer_mc_fused(y, wts, spec),
+                "conv_mixer_mc_kernel", reps=10)
+    say(f"[11 B3 conv_mixer_mc_fused vs plain] {card} | max_abs_err "
+        f"{b3_err:.3e} (tol {TOL_B3:g}), second launch bit-identical, kernel "
+        "layout and shared memory equal the wrapper's | " + " ; ".join(parts)
+        + " | kernel/plain ms (bound ms, by): " + " ; ".join(
+            f"{t} B={b} {k:.4f}/{p:.4f} ({bd[0]:.5f}, {bd[1]})"
+            for (t, b), (k, p, bd) in b3_t.items())
+        + " | profiler device us/launch at B=128: " + " ; ".join(
+            f"{t} {'not measured' if v is None else f'{v:.2f}'}"
+            for t, v in b3_dev.items()))
+    del b3_fused
+
+    # [12] the autoregressive path: the CLI at its default widths (one
+    # teacher-forcing and one closed-loop epoch) on the synthetic corpus,
+    # its train_state.pt rebuilt and served through B3, in process and over
+    # HTTP (launch counts reset just before the CLI and read just after the
+    # serving)
+    from motionmixerconv_tpu_torch.cli import train_autoreg_mixer_h36m
+
+    ar_save = work / "runs_ar"
+    shutil.rmtree(ar_save, ignore_errors=True)
+    ar_argv = [*AR_ARGV, "--data_dir", str(data_dir), "--save_path", str(ar_save)]
+    ar_args = train_autoreg_mixer_h36m.parse_args(ar_argv)
+    n_train_ar = len(H36MDataset(str(data_dir), ar_args.input_n_dataset,
+                                 ar_args.output_n_dataset, ar_args.skip_rate,
+                                 split=0))
+    ar_steps = -(-n_train_ar // ar_args.batch_size)
+    counters = {"conv_mixer_fused": conv_mixer.LAUNCHES,
+                "conv_mixer_mc": conv_mixer_mc.LAUNCHES,
+                "harmonic_dense_fwd": harmonic.LAUNCHES,
+                "harmonic_dense_bwd": harmonic.LAUNCHES_BWD}
+    for c in counters.values():
+        c.reset()
+    t0 = time.perf_counter()
+    ar_hist = train_autoreg_mixer_h36m.main(ar_argv)
+    ar_run_s = time.perf_counter() - t0
+    served_ar = Predictor.from_checkpoint(
+        None, str(ar_save / "h36_ar_25frames_ckpt" / _runner.STATE_FILE),
+        device=dev)
+    x_ar = win[:, :10, dim_used].contiguous()  # mm: this path feeds raw input
+    got = served_ar.predict(x_ar)
+    server = PredictionServer(served_ar, port=0, warmup=True)
+    server.start_background()
+    http_ar = post(f"http://127.0.0.1:{server.port}", "/predict",
+                   {"inputs": x_ar[:5].tolist()})["outputs"]
+    server.close()
+    torch.cuda.synchronize()
+    ar_launches = {k: c.value for k, c in counters.items()}
+    with torch.no_grad():
+        want = served_ar.model(x_ar.to(dev))  # the loaded nn.Module, plain
+    ar_scale = max(1.0, float(want.abs().max()))
+    ar_err = float((got - want).abs().max()) / ar_scale
+    http_ar = torch.tensor(http_ar, dtype=torch.float32)
+    ar_http_err = float((http_ar - want[:5].cpu()).abs().max()) / ar_scale
+    values = [*ar_hist["train"], *ar_hist["val"], *ar_hist["test"],
+              *ar_hist["metrics"]["mpjpe"], *ar_hist["metrics"]["auc_pck"]]
+    say(f"[12 autoregressive CLI {' '.join(AR_ARGV)}] model "
+        f"{type(served_ar._fused).__name__} conv_nChan "
+        f"{served_ar.model.conv_nChan} dimPosEmb {served_ar.model.dimPosEmb} "
+        f"BatchNorm {served_ar.model.regularization == -1.0} | {n_train_ar} "
+        f"train windows, batch {ar_args.batch_size} | train loss "
+        f"{ar_hist['train']} (teacher forcing, closed loop) | val "
+        f"{ar_hist['val']} (closed loop both) | rollout mpjpe "
+        f"{[float(v) for v in ar_hist['metrics']['mpjpe']]} | auc_pck "
+        f"{[float(v) for v in ar_hist['metrics']['auc_pck']]} | launches on "
+        f"the path {ar_launches} | train_state.pt served through B3 (b=32 "
+        f"test windows) vs the plain forward: max abs err / max(1, max|out| = "
+        f"{ar_scale:.1f}) {ar_err:.3e}; /predict b=5 {ar_http_err:.3e} (tol "
+        f"{TOL_E2E:g})")
+    if not all(np.isfinite(float(v)) for v in values):
+        fail(f"autoregressive run: non-finite loss or metric in {values}")
+    if not ar_hist["val"][1] < ar_hist["val"][0]:
+        fail(f"autoregressive run: the closed-loop val loss did not fall: "
+             f"{ar_hist['val']}")
+    if ar_launches["conv_mixer_mc"] < 1:
+        fail("the autoregressive checkpoint was not served through B3")
+    if got.shape != (32, 5, 66) or not torch.isfinite(got).all() \
+            or not ar_err <= TOL_E2E or not ar_http_err <= TOL_E2E:
+        fail(f"served autoregressive checkpoint: shape {tuple(got.shape)}, "
+             f"err {ar_err:.3e}, /predict err {ar_http_err:.3e}")
+
+    # [13] autoregressive times: the CLI's epochs (host clock around work
+    # ending in a host read) and a profiled window of closed-loop steps
+    from motionmixerconv_tpu_torch.train import AutoregressiveTrainer
+
+    model = ConvMixer(**AUTOREG,
+                      generator=torch.Generator().manual_seed(SEED + 8)).to(dev)
+    ar_prof = profile_steps(torch, train_step_fn(torch, dev, AutoregressiveTrainer(
+        model, make_optimizer(model.parameters(), lr=1e-3), loss_type="mpjpe",
+        dim_used=H36M_DIM_USED_XYZ, input_n=10, output_n=25, input_n_model=10,
+        output_n_model=5, step_window=5), SEED + 8))
+    del model
+    say(f"[13 autoregressive times] {card} | epoch 0 (teacher forcing), "
+        f"epoch 1 (closed loop): train s {ar_hist['train_s'][0]:.3f}, "
+        f"{ar_hist['train_s'][1]:.3f} | train samples/s "
+        f"{n_train_ar / ar_hist['train_s'][0]:.1f}, "
+        f"{n_train_ar / ar_hist['train_s'][1]:.1f} | step ms "
+        f"{ar_hist['train_s'][0] / ar_steps * 1e3:.3f}, "
+        f"{ar_hist['train_s'][1] / ar_steps * 1e3:.3f} | epoch s (train+val+"
+        f"test+ckpt) {ar_hist['epoch_s'][0]:.3f}, {ar_hist['epoch_s'][1]:.3f}"
+        f" | whole CLI run s {ar_run_s:.2f} | profiled closed-loop steps "
+        f"(batch {TRAIN_BATCH}): {ar_prof}")
 
     kernels = [
         {"name": "conv_mixer_fused", "route": "cuda",
@@ -735,10 +974,22 @@ def main() -> None:
          "with_dx": {"ms": bwd_t[(r0, True)][0],
                      "plain_ms": bwd_t[(r0, True)][1],
                      "bound_ms": bwd_t[(r0, True)][2][0]}},
+        {"name": "conv_mixer_mc", "route": "cuda",
+         "source": "motionmixerconv_tpu_torch/csrc/conv_mixer_mc.cu",
+         "replaces": "motionmixerconv_tpu/ops/pallas_conv_mixer.py:465",
+         "launches": ar_launches["conv_mixer_mc"], "max_abs_err": b3_err,
+         "ms": b3_t[("autoregressive", 128)][0],
+         "plain_ms": b3_t[("autoregressive", 128)][1],
+         "bound_ms": b3_t[("autoregressive", 128)][2][0],
+         "bound_by": b3_t[("autoregressive", 128)][2][1], "library_ms": None,
+         "study": {"ms": b3_t[("study", 128)][0],
+                   "plain_ms": b3_t[("study", 128)][1],
+                   "bound_ms": b3_t[("study", 128)][2][0]}},
     ]
     for k in kernels:
         k["launches_by_path"] = {"serve": launches.get(k["name"], 0),
-                                 "train": train_launches[k["name"]]}
+                                 "train": train_launches.get(k["name"], 0),
+                                 "autoregressive": ar_launches[k["name"]]}
     say(json.dumps({"kernels": kernels}))
     say(card)
     say(json.dumps({"ok": True, "device": {

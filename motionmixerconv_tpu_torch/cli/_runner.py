@@ -1,16 +1,18 @@
-"""The training-run driver behind the H36M CLI.
+"""The training-run drivers behind the H36M CLIs.
 
-Counterpart of ``motionmixerconv_tpu/cli/_runner.py`` for the direct H36M
-path: build the model from the flags, load the three splits, train epoch
-by epoch, validate on S11, run the grouped test over the actions, log, and
-write a checkpoint every epoch. The other drivers (autoregressive, AIS,
-AMASS) land with their slices.
+Counterpart of ``motionmixerconv_tpu/cli/_runner.py`` for the direct and the
+autoregressive H36M paths: build the model from the flags, load the three
+splits, train epoch by epoch, validate on S11, run the grouped test over the
+actions, log, and write a checkpoint every epoch. ``model_from_checkpoint_meta``
+rebuilds a trained model from its checkpoint's stored flags. The other
+drivers (AIS, AMASS) land with their slices.
 """
 
 from __future__ import annotations
 
 import os
 import time
+from types import SimpleNamespace
 from typing import Optional
 
 import numpy as np
@@ -21,7 +23,8 @@ from ..data.constants import H36M_DIM_USED_XYZ, define_actions
 from ..logging import MetricLogger
 from ..models import ConvMixer
 from ..serving import resolve_device
-from ..train import Trainer, make_optimizer, restore_checkpoint, save_checkpoint
+from ..train import (AutoregressiveTrainer, Trainer, make_optimizer,
+                     restore_checkpoint, save_checkpoint)
 
 STATE_FILE = "train_state.pt"  # full training state, for --resume
 WEIGHTS_FILE = "model.pt"      # reference-layout weights, for serving
@@ -85,6 +88,41 @@ def _steps_per_epoch(n: int, batch_size: int) -> int:
     return max(1, (n + batch_size - 1) // batch_size)
 
 
+def _h36m_splits(args, input_n: int, output_n: int):
+    """(train, validation, {action: test}) H36M xyz corpora of
+    (input_n + output_n)-frame windows."""
+    def split(s, actions=None):
+        return H36MDataset(args.data_dir, input_n, output_n, args.skip_rate,
+                           actions=actions, split=s)
+
+    tests = {a: split(2, [a]) for a in define_actions(args.actions_to_consider)}
+    return split(0), split(1), tests
+
+
+def _model_and_optimizer(args, model: Optional[ConvMixer], init_state_dict,
+                         device: torch.device, in_ntp: int, out_ntp: int,
+                         n_train: int):
+    """The model (from the flags, seeded by ``args.seed``, unless given;
+    ``init_state_dict`` loaded strictly over it) on ``device``, and its Adam
+    with coupled L2 1e-5 and per-batch MultiStepLR."""
+    seed = getattr(args, "seed", 0)
+    torch.manual_seed(seed)  # the dropout stream (CPU and CUDA generators)
+    if model is None:
+        model = build_conv_mixer(args, len(H36M_DIM_USED_XYZ),
+                                 len(H36M_DIM_USED_XYZ), in_ntp, out_ntp,
+                                 generator=torch.Generator().manual_seed(seed))
+    if init_state_dict is not None:
+        model.load_state_dict(init_state_dict, strict=True)
+    model = model.to(device)
+    opt = make_optimizer(
+        model.parameters(), lr=args.lr, weight_decay=1e-5,
+        use_scheduler=args.use_scheduler, milestones=args.milestones,
+        gamma=args.gamma,
+        steps_per_epoch=_steps_per_epoch(n_train, args.batch_size),
+        clip_grad=args.clip_grad)
+    return model, opt
+
+
 def _combine_test_sets(test_sets: dict, device: torch.device):
     """Concatenate per-action corpora into one (frames on ``device``,
     starts, group_ids, names)."""
@@ -100,29 +138,61 @@ def _combine_test_sets(test_sets: dict, device: torch.device):
             list(test_sets.keys()))
 
 
+def model_from_checkpoint_meta(meta: dict) -> ConvMixer:
+    """The model a checkpoint's stored training args (``train_state.pt``
+    meta) describe, for the port's two H36M xyz trainers: direct and
+    autoregressive (``*_model`` window args). The MlpMixer family (AMASS,
+    or ``model_type mlp``) lands with its slice (ROADMAP queue A item 11)
+    and raises."""
+    # the direct CLI stores model_type; the autoregressive one has none
+    # but stores its kernel shape
+    model_type = meta.get("model_type",
+                          "conv" if "conv1_kernel_shape" in meta else "mlp")
+    if model_type != "conv":
+        raise NotImplementedError(
+            "MlpMixer checkpoints land with the AMASS/MlpMixer slice "
+            "(ROADMAP queue A item 11)")
+    in_n = meta.get("input_n_model", meta.get("input_n", 10))
+    out_n = meta.get("output_n_model", meta.get("output_n", 25))
+    dim = len(H36M_DIM_USED_XYZ)
+    return build_conv_mixer(SimpleNamespace(**meta), dim, dim, in_n, out_n)
+
+
 def _train_and_evaluate(
     args, trainer: Trainer, logger: MetricLogger, log_dir: str,
     dataset, frames, vald, vframes,
     test_frames, test_starts, test_gids, action_names, start_epoch: int = 0,
+    *, test_kind: str = "h36m_xyz",
+    teacher_forcing_epochs: Optional[int] = None,
 ):
-    """Epoch driver: train -> validate -> grouped per-action test (MPJPE,
-    AUC-PCK) -> history, logged scalars, checkpoint."""
+    """Epoch driver: train -> validate -> grouped per-action test (MPJPE and
+    AUC-PCK of ``test_kind``) -> history, logged scalars, checkpoint.
+    ``teacher_forcing_epochs`` not None selects the autoregressive trainer:
+    teacher forcing while ``epoch`` is below it, closed loop after."""
     if int(getattr(args, "epochs_per_dispatch", 1) or 1) > 1:
         trainer.run_epochs_fused()  # raises: not ported
+    autoreg = teacher_forcing_epochs is not None
+    metric_names = ("mpjpe", "auc_pck")
     history = {"train": [], "val": [], "test": [],
-               "metrics": {"mpjpe": [], "auc_pck": []},
+               "metrics": {metric_names[0]: [], metric_names[1]: []},
                "train_s": [], "epoch_s": []}
     for epoch in range(start_epoch, args.n_epochs):
         t0 = time.perf_counter()
-        train_loss = trainer.train_epoch(dataset, frames, args.batch_size,
-                                         seed=epoch)
+        if autoreg:
+            tf = epoch < teacher_forcing_epochs
+            train_loss = trainer.train_epoch_ar(
+                dataset, frames, args.batch_size, seed=epoch,
+                teacher_forcing=tf)
+        else:
+            train_loss = trainer.train_epoch(dataset, frames, args.batch_size,
+                                             seed=epoch)
         train_s = time.perf_counter() - t0
         logger.add_scalar("perf/train_seq_per_sec",
                           len(dataset) / max(train_s, 1e-9), epoch)
         val_loss = trainer.validate(vald, vframes, args.batch_size)
         m1s, m2s, ns = trainer.evaluate_grouped(
             test_frames, test_starts, test_gids, len(action_names),
-            args.batch_size_test, "h36m_xyz")
+            args.batch_size_test, test_kind)
         per_action = {a: (m1s[i] / ns[i], m2s[i] / ns[i])
                       for i, a in enumerate(action_names)}
         m1_avg = m1s.sum() / ns.sum()
@@ -132,13 +202,13 @@ def _train_and_evaluate(
         history["val"].append(val_loss)
         history["test"].append(m1_avg)
         history["per_action"] = per_action
-        history["metrics"]["mpjpe"].append(m1_avg)
-        history["metrics"]["auc_pck"].append(m2_avg)
+        history["metrics"][metric_names[0]].append(m1_avg)
+        history["metrics"][metric_names[1]].append(m2_avg)
         logger.add_scalar("loss/train", train_loss, epoch)
         logger.add_scalar("loss/val", val_loss, epoch)
         logger.add_scalar("loss/test", m1_avg, epoch)
-        logger.add_scalar("metrics/mpjpe", m1_avg, epoch)
-        logger.add_scalar("metrics/auc_pck", m2_avg, epoch)
+        logger.add_scalar(f"metrics/{metric_names[0]}", m1_avg, epoch)
+        logger.add_scalar(f"metrics/{metric_names[1]}", m2_avg, epoch)
 
         save_checkpoint(os.path.join(log_dir, STATE_FILE), trainer.model,
                         trainer.optimizer, epoch, meta=vars(args),
@@ -147,8 +217,10 @@ def _train_and_evaluate(
         history["train_s"].append(train_s)
         history["epoch_s"].append(epoch_s)
         logger.add_scalar("perf/epoch_s", epoch_s, epoch)
-        print(f"epoch {epoch}: train {train_loss:.4f} val {val_loss:.4f} "
-              f"test {m1_avg:.4f} ({epoch_s:.1f}s, train {train_s:.1f}s)")
+        tf_note = f"tf={epoch < teacher_forcing_epochs} " if autoreg else ""
+        print(f"epoch {epoch}: {tf_note}train {train_loss:.4f} val "
+              f"{val_loss:.4f} test {m1_avg:.4f} ({epoch_s:.1f}s, train "
+              f"{train_s:.1f}s)")
     return history
 
 
@@ -164,38 +236,15 @@ def run_h36m(args, model: Optional[ConvMixer] = None,
             "queue A item 9)")
     device = resolve_device(getattr(args, "dev", "cuda"))
     dim_used = H36M_DIM_USED_XYZ
-    seed = getattr(args, "seed", 0)
-
-    dataset = H36MDataset(args.data_dir, args.input_n, args.output_n,
-                          args.skip_rate, split=0)
-    vald = H36MDataset(args.data_dir, args.input_n, args.output_n,
-                       args.skip_rate, split=1)
-    test_sets = {
-        a: H36MDataset(args.data_dir, args.input_n, args.output_n,
-                       args.skip_rate, actions=[a], split=2)
-        for a in define_actions(args.actions_to_consider)
-    }
+    dataset, vald, test_sets = _h36m_splits(args, args.input_n, args.output_n)
     print(f">>> Training dataset length: {len(dataset)}")
     print(f">>> Validation dataset length: {len(vald)}")
-
-    torch.manual_seed(seed)  # the dropout stream (CPU and CUDA generators)
-    if model is None:
-        model = build_conv_mixer(args, len(dim_used), len(dim_used),
-                                 args.input_n, args.output_n,
-                                 generator=torch.Generator().manual_seed(seed))
-    if init_state_dict is not None:
-        model.load_state_dict(init_state_dict, strict=True)
-    model = model.to(device)
+    model, opt = _model_and_optimizer(
+        args, model, init_state_dict, device, args.input_n, args.output_n,
+        len(dataset))
     model_name = model_name or f"h36_3d_{args.output_n}frames_ckpt"
     log_dir = _log_dir(args, model_name)
     logger = MetricLogger(log_dir)
-
-    opt = make_optimizer(
-        model.parameters(), lr=args.lr, weight_decay=1e-5,
-        use_scheduler=args.use_scheduler, milestones=args.milestones,
-        gamma=args.gamma,
-        steps_per_epoch=_steps_per_epoch(len(dataset), args.batch_size),
-        clip_grad=args.clip_grad)
     trainer = Trainer(
         model, opt, loss_type=args.loss_type, dim_used=dim_used,
         input_n=args.input_n, output_n=args.output_n, input_scale=1e-3,
@@ -215,6 +264,49 @@ def run_h36m(args, model: Optional[ConvMixer] = None,
             args, trainer, logger, log_dir,
             dataset, dataset.frames_on(device), vald, vald.frames_on(device),
             test_frames, test_starts, test_gids, action_names, start_epoch)
+    finally:
+        logger.close()
+    return history, trainer
+
+
+def run_h36m_autoregressive(args, model: Optional[ConvMixer] = None,
+                            model_name: Optional[str] = None,
+                            init_state_dict=None):
+    """H36M autoregressive training (train_autoreg_mixer_h36m.py:49-192) on
+    ``args.dev``: the model sees (input_n_model -> output_n_model) windows
+    and is rolled over (input_n_dataset + output_n_dataset) sequences in
+    step_window strides; teacher forcing for the first
+    n_epochs_teacher_forcing epochs. ``init_state_dict`` (reference layout)
+    replaces the seeded init. Returns (history, trainer)."""
+    if args.loss_type != "mpjpe":
+        raise NotImplementedError(
+            "--loss_type angle lands with the H36M angle slice (ROADMAP "
+            "queue A item 9)")
+    device = resolve_device(getattr(args, "dev", "cuda"))
+    dim_used = H36M_DIM_USED_XYZ
+    dataset, vald, test_sets = _h36m_splits(
+        args, args.input_n_dataset, args.output_n_dataset)
+    model, opt = _model_and_optimizer(
+        args, model, init_state_dict, device, args.input_n_model,
+        args.output_n_model, len(dataset))
+    model_name = model_name or f"h36_ar_{args.output_n_dataset}frames_ckpt"
+    log_dir = _log_dir(args, model_name)
+    logger = MetricLogger(log_dir)
+    trainer = AutoregressiveTrainer(
+        model, opt, loss_type=args.loss_type, dim_used=dim_used,
+        input_n=args.input_n_dataset, output_n=args.output_n_dataset,
+        input_n_model=args.input_n_model, output_n_model=args.output_n_model,
+        step_window=args.step_window)
+    print(f"total number of parameters of the network is: {param_count(model)}")
+
+    test_frames, test_starts, test_gids, action_names = _combine_test_sets(
+        test_sets, device)
+    try:
+        history = _train_and_evaluate(
+            args, trainer, logger, log_dir,
+            dataset, dataset.frames_on(device), vald, vald.frames_on(device),
+            test_frames, test_starts, test_gids, action_names,
+            test_kind="ar", teacher_forcing_epochs=args.n_epochs_teacher_forcing)
     finally:
         logger.close()
     return history, trainer

@@ -34,7 +34,15 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "device_math.cuh"
+
 namespace {
+
+using mmc::activation;
+using mmc::gelu_exact;
+using mmc::layer_norm_rows;
+using mmc::warp_max;
+using mmc::warp_sum;
 
 struct Dims {
   int T, E, P, D, H, nb, kh1, kw1, kh2, kw2, twice, use_se, use_max, act;
@@ -56,50 +64,6 @@ __host__ inline size_t smem_bytes(const Dims& d) {
 }
 
 constexpr int kThreads = 256;
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float gelu_exact(float x) {
-  return 0.5f * x * (1.0f + erff(x * 0.70710678118654752440f));
-}
-
-// act: 0 = exact GELU, 1 = mish with the overflow-free softplus
-__device__ __forceinline__ float activation(float x, int act) {
-  if (act == 1) {
-    float sp = log1pf(expf(-fabsf(x))) + fmaxf(x, 0.0f);
-    return x * tanhf(sp);
-  }
-  return gelu_exact(x);
-}
-
-// out[t, :] = LN(in[t, :]) * g + b over the true E, one warp per row.
-__device__ void layer_norm_rows(const float* in, float* out, const float* g,
-                                const float* b, int T, int E) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int t = warp; t < T; t += kThreads / 32) {
-    const float* r = in + t * E;
-    float s = 0.0f;
-    for (int e = lane; e < E; e += 32) s += r[e];
-    const float mu = warp_sum(s) / E;
-    float v = 0.0f;
-    for (int e = lane; e < E; e += 32) {
-      const float dv = r[e] - mu;
-      v += dv * dv;
-    }
-    const float inv = 1.0f / sqrtf(warp_sum(v) / E + 1e-5f);
-    for (int e = lane; e < E; e += 32)
-      out[t * E + e] = (r[e] - mu) * inv * g[e] + b[e];
-  }
-}
 
 // 'same' (kh over T, kw over E) stencil with torch's padding (left pad
 // floor((k-1)/2), the extra pad on the right); taps outside the plane
@@ -196,7 +160,7 @@ conv_mixer_fused_kernel(const float* __restrict__ yin,
     const float* se_w1 = scal + 6;
     const float* se_w2 = se_w1 + T * H;
 
-    layer_norm_rows(y, z, ln1_g, ln1_b, T, E);
+    layer_norm_rows(y, z, ln1_g, ln1_b, T, E, E);
     __syncthreads();
     conv_same_act_bn(z, c, taps1, d.kh1, d.kw1, scal[0], scal[1], scal[2], T,
                      E, d.act);
@@ -206,7 +170,7 @@ conv_mixer_fused_kernel(const float* __restrict__ yin,
     __syncthreads();
 
     if (d.twice) {
-      layer_norm_rows(y, z, ln2_g, ln2_b, T, E);
+      layer_norm_rows(y, z, ln2_g, ln2_b, T, E, E);
       __syncthreads();
       conv_same_act_bn(z, c, taps2, d.kh2, d.kw2, scal[3], scal[4], scal[5],
                        T, E, d.act);
@@ -228,7 +192,7 @@ conv_mixer_fused_kernel(const float* __restrict__ yin,
   const float* w_out = proj + 2;
   const float* b_out = w_out + E * D;
 
-  layer_norm_rows(y, z, g_ln, b_ln, T, E);
+  layer_norm_rows(y, z, g_ln, b_ln, T, E, E);
   __syncthreads();
   // time upsample T -> P, scalar channel projection, exact GELU (the
   // decoder's activation is GELU whatever the blocks use)

@@ -1,6 +1,6 @@
 from .encoding import PoseEncoder, harmonic_features
 from .mixer_conv import ConvBlock, ConvMixer, ConvMixerBlock, MultiChanSELayer
-from .torch_io import load_pt_into, state_dict_from_jax
+from .torch_io import read_weights, state_dict_from_jax
 
 __all__ = [
     "PoseEncoder",
@@ -9,6 +9,6 @@ __all__ = [
     "ConvMixer",
     "ConvMixerBlock",
     "MultiChanSELayer",
-    "load_pt_into",
+    "read_weights",
     "state_dict_from_jax",
 ]

@@ -7,9 +7,11 @@ Counterpart of ``motionmixerconv_tpu/models/common.py``.
 from __future__ import annotations
 
 import math
+from contextlib import contextmanager
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 
@@ -29,16 +31,59 @@ def torch_default_init_(module: nn.Module,
                     m.bias.uniform_(-bound, bound, generator=generator)
 
 
+class BatchNorm2d(nn.BatchNorm2d):
+    """torch's BatchNorm2d with flax's running-variance update.
+
+    Train mode normalises with the biased batch variance, as torch and flax
+    both do, and moves ``running_var`` towards that same biased variance
+    (flax ``BatchNorm``); torch's own module moves it towards the unbiased
+    one, n/(n-1) larger. ``update_running_stats = False`` keeps the running
+    stats still in train mode (the autoregressive rollout's forwards). The
+    state_dict keys are torch's. Eval mode is torch's."""
+
+    update_running_stats = True
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        out = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
+                           self.eps)
+        if self.update_running_stats:
+            with torch.no_grad():
+                dims = [0, *range(2, x.dim())]
+                m = self.momentum
+                self.running_mean.mul_(1.0 - m).add_(x.mean(dims), alpha=m)
+                self.running_var.mul_(1.0 - m).add_(
+                    x.var(dims, unbiased=False), alpha=m)
+                self.num_batches_tracked.add_(1)
+        return out
+
+
+@contextmanager
+def frozen_running_stats(module: nn.Module):
+    """Within the block, train-mode BatchNorms under ``module`` normalise
+    with batch statistics but leave their running stats as they are."""
+    bns = [m for m in module.modules() if isinstance(m, BatchNorm2d)]
+    for m in bns:
+        m.update_running_stats = False
+    try:
+        yield
+    finally:
+        for m in bns:
+            m.update_running_stats = True
+
+
 def Regularization(regularization: float, num_features: int) -> nn.Module:
     """regularization > 0 -> Dropout(p); == -1 -> BatchNorm2d over the
-    conv-channel axis (eps 1e-5, momentum 0.1); otherwise identity.
+    conv-channel axis (eps 1e-5, momentum 0.1, flax's running-variance
+    update); otherwise identity.
 
     Returns the module itself, so a BatchNorm's state_dict keys sit directly
     under the owner's ``reg`` name as in the reference."""
     if regularization > 0.0:
         return nn.Dropout(regularization)
     if regularization == -1.0:
-        return nn.BatchNorm2d(num_features, eps=1e-5, momentum=0.1)
+        return BatchNorm2d(num_features, eps=1e-5, momentum=0.1)
     return nn.Identity()
 
 

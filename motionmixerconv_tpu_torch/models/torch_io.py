@@ -8,11 +8,10 @@ torch state_dict that the port's modules load strictly.
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
-from torch import nn
 
 Flat = Dict[str, np.ndarray]
 
@@ -108,9 +107,11 @@ def state_dict_from_jax(variables: Dict[str, Any], num_blocks: int,
     return {k: torch.from_numpy(np.array(v)) for k, v in arrays.items()}
 
 
-def load_pt_into(model: nn.Module, path: str) -> nn.Module:
-    """Read a torch ``.pt``/``.pth`` state_dict (tensors only, onto the CPU)
-    and load it into ``model`` with ``strict=True``."""
-    sd = torch.load(path, map_location="cpu", weights_only=True)
-    model.load_state_dict(sd, strict=True)
-    return model
+def read_weights(path: str) -> Tuple[Dict[str, torch.Tensor], Optional[dict]]:
+    """(state_dict, training-args meta) of a torch ``.pt``/``.pth`` file,
+    read onto the CPU with ``weights_only``: a reference state_dict has no
+    meta (None); the trainers' ``train_state.pt`` holds both."""
+    payload = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(payload, dict) and {"model", "meta"} <= set(payload):
+        return payload["model"], payload["meta"]
+    return payload, None

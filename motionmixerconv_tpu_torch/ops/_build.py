@@ -105,6 +105,12 @@ def _declare(lib) -> None:
     lib.mmc_conv_mixer_smem_bytes.restype = L
     lib.mmc_conv_mixer_fused.argtypes = [p, p, p] + [i] * 15 + [p]
     lib.mmc_conv_mixer_fused.restype = i
+    lib.mmc_conv_mixer_mc_weights_numel.argtypes = [i] * 11
+    lib.mmc_conv_mixer_mc_weights_numel.restype = L
+    lib.mmc_conv_mixer_mc_smem_bytes.argtypes = [i] * 11
+    lib.mmc_conv_mixer_mc_smem_bytes.restype = L
+    lib.mmc_conv_mixer_mc.argtypes = [p, p, p] + [i] * 16 + [p]
+    lib.mmc_conv_mixer_mc.restype = i
     lib.mmc_harmonic_max_outputs_per_tile.argtypes = []
     lib.mmc_harmonic_max_outputs_per_tile.restype = i
     lib.mmc_harmonic_smem_bytes.argtypes = [i, i, i]

@@ -101,15 +101,15 @@ def _same_equivalent(conv: nn.Conv2d) -> bool:
             and tuple(conv.padding) == ((kh - 1) // 2, (kw - 1) // 2))
 
 
-def _bn_affine(reg: nn.Module) -> Tuple[float, float]:
-    """Inference BatchNorm as (scale, shift), folded in float64; identity for
-    dropout and no regularization."""
+def bn_affine(reg: nn.Module, n: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Inference BatchNorm over ``n`` channels as per-channel (scale, shift),
+    folded in float64; identity for dropout and no regularization."""
     if not isinstance(reg, nn.BatchNorm2d):
-        return 1.0, 0.0
-    w = reg.weight.double()[0]
-    b = reg.bias.double()[0]
-    s = w / torch.sqrt(reg.running_var.double()[0] + reg.eps)
-    return float(s), float(b - reg.running_mean.double()[0] * s)
+        return (torch.ones(n, dtype=torch.float64),
+                torch.zeros(n, dtype=torch.float64))
+    s = reg.weight.detach().double() / torch.sqrt(
+        reg.running_var.double() + reg.eps)
+    return s, reg.bias.detach().double() - reg.running_mean.double() * s
 
 
 def pack_conv_mixer(model) -> Tuple[ConvMixerSpec, torch.Tensor]:
@@ -119,7 +119,7 @@ def pack_conv_mixer(model) -> Tuple[ConvMixerSpec, torch.Tensor]:
     if model.conv_nChan != 1:
         raise NotImplementedError(
             "the fused ConvMixer kernel covers conv_nChan == 1; conv_nChan "
-            ">= 2 needs kernel B3 (FusedConvMixerMC), not ported yet")
+            ">= 2 goes to FusedConvMixerMC (ops/conv_mixer_mc.py)")
     blocks = list(model.Mixer_Block)
     twice = model.mode_conv == "twice"
     for mb in blocks:
@@ -151,10 +151,10 @@ def pack_conv_mixer(model) -> Tuple[ConvMixerSpec, torch.Tensor]:
     pieces = []
     with torch.no_grad():
         for mb in blocks:
-            s1, t1 = _bn_affine(mb.conv1.reg)
+            s1, t1 = (float(v[0]) for v in bn_affine(mb.conv1.reg, 1))
             b1 = float(mb.conv1.conv.bias[0])
             if twice:
-                s2, t2 = _bn_affine(mb.conv2.reg)
+                s2, t2 = (float(v[0]) for v in bn_affine(mb.conv2.reg, 1))
                 b2 = float(mb.conv2.conv.bias[0])
                 ln2_g, ln2_b = mb.LN2.weight, mb.LN2.bias
                 taps2 = mb.conv2.conv.weight[0, 0].reshape(-1)
@@ -237,26 +237,34 @@ def conv_mixer_plain(y: torch.Tensor, flat: torch.Tensor,
     return d @ g["w_out"].view(spec.E, spec.D) + g["b_out"]
 
 
-def conv_mixer_fused(y: torch.Tensor, flat: torch.Tensor,
-                     spec: ConvMixerSpec) -> torch.Tensor:
-    """(B, T, E) encoder output -> (B, P, D): the CUDA kernel for a CUDA
-    tensor, the plain version for a CPU tensor, an error otherwise."""
+def check_inputs(what: str, y: torch.Tensor, flat: torch.Tensor, spec,
+                 sample_shape: Tuple[int, ...]) -> None:
+    """Raise unless ``y`` is a contiguous float32 (B, *sample_shape) tensor
+    and ``flat`` the contiguous float32 packed weights of ``spec``, both on
+    one device."""
     if y.dtype != torch.float32 or flat.dtype != torch.float32:
-        raise TypeError("conv_mixer_fused takes float32 tensors")
-    if y.dim() != 3 or tuple(y.shape[1:]) != (spec.T, spec.E):
-        raise ValueError(
-            f"expected (B, {spec.T}, {spec.E}), got {tuple(y.shape)}")
+        raise TypeError(f"{what} takes float32 tensors")
+    if y.dim() != 1 + len(sample_shape) or tuple(y.shape[1:]) != sample_shape:
+        raise ValueError(f"expected (B, {', '.join(map(str, sample_shape))}),"
+                         f" got {tuple(y.shape)}")
     if flat.dim() != 1 or flat.numel() != spec.numel():
         raise ValueError("packed weights do not match the spec")
     if y.device != flat.device:
         raise ValueError(f"y on {y.device}, weights on {flat.device}")
     if not (y.is_contiguous() and flat.is_contiguous()):
-        raise ValueError("conv_mixer_fused takes contiguous tensors")
+        raise ValueError(f"{what} takes contiguous tensors")
+    if y.device.type not in ("cpu", "cuda"):
+        raise RuntimeError(f"{what}: no kernel for {y.device}")
+
+
+def conv_mixer_fused(y: torch.Tensor, flat: torch.Tensor,
+                     spec: ConvMixerSpec) -> torch.Tensor:
+    """(B, T, E) encoder output -> (B, P, D): the CUDA kernel for a CUDA
+    tensor, the plain version for a CPU tensor, an error otherwise."""
+    check_inputs("conv_mixer_fused", y, flat, spec, (spec.T, spec.E))
     if y.device.type == "cpu":
         PLAIN_CALLS.add()
         return conv_mixer_plain(y, flat, spec)
-    if y.device.type != "cuda":
-        raise RuntimeError(f"conv_mixer_fused: no kernel for {y.device}")
     B = y.shape[0]
     out = torch.empty((B, spec.P, spec.D), device=y.device, dtype=torch.float32)
     if B == 0:
@@ -271,22 +279,25 @@ def conv_mixer_fused(y: torch.Tensor, flat: torch.Tensor,
     return out
 
 
-class FusedConvMixer:
-    """A port ConvMixer's core packed for the fused kernel; the encoder runs
-    outside it. ``__call__``: (B, in_nTP, dimPosIn) -> (B, out_nTP, D).
+def plain_encoder_copy(enc: PoseEncoder, device) -> PoseEncoder:
+    """A plain PoseEncoder (direct harmonics, no kernel) on ``device``
+    holding a copy of ``enc``'s weights: the fused cores' encoder, as the
+    JAX fused classes build their XLA-side encoder."""
+    copy = PoseEncoder(enc.dimPosIn, enc.dimPosEmb, conv_nChan=enc.conv_nChan,
+                       n_harmonic_functions=enc.n_harmonic_functions,
+                       omega0=enc.omega0)
+    copy.load_state_dict(enc.state_dict(), strict=True)
+    return copy.to(device).eval()
 
-    The encoder is a plain PoseEncoder (direct harmonics, no kernel) holding
-    a copy of the model's encoder weights, as the JAX FusedConvMixer builds
-    its XLA-side encoder."""
+
+class FusedConvMixer:
+    """A port ConvMixer's core packed for the fused kernel; the encoder
+    (``plain_encoder_copy``) runs outside it. ``__call__``: (B, in_nTP,
+    dimPosIn) -> (B, out_nTP, D)."""
 
     def __init__(self, model):
         self.spec, self.weights = pack_conv_mixer(model)
-        enc = model.encoder
-        self.encoder = PoseEncoder(
-            enc.dimPosIn, enc.dimPosEmb, conv_nChan=1,
-            n_harmonic_functions=enc.n_harmonic_functions, omega0=enc.omega0)
-        self.encoder.load_state_dict(enc.state_dict(), strict=True)
-        self.encoder.to(self.weights.device).eval()
+        self.encoder = plain_encoder_copy(model.encoder, self.weights.device)
 
     @torch.no_grad()
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
@@ -294,7 +305,13 @@ class FusedConvMixer:
         return conv_mixer_fused(y, self.weights, self.spec)
 
 
-def make_fused_conv_mixer(model) -> FusedConvMixer:
-    """conv_nChan == 1 -> FusedConvMixer; conv_nChan >= 2 raises
-    NotImplementedError (kernel B3 is not ported yet)."""
-    return FusedConvMixer(model)
+def make_fused_conv_mixer(model):
+    """Kernel factory, as the JAX package's: conv_nChan == 1 ->
+    FusedConvMixer (B2); conv_nChan >= 2 -> FusedConvMixerMC (B3,
+    ``ops/conv_mixer_mc.py``). NotImplementedError outside the kernels'
+    domains (conv_nChan * in_nTP > 128 among them)."""
+    if model.conv_nChan == 1:
+        return FusedConvMixer(model)
+    from .conv_mixer_mc import FusedConvMixerMC
+
+    return FusedConvMixerMC(model)

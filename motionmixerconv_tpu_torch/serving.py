@@ -2,16 +2,17 @@
 
 Counterpart of ``motionmixerconv_tpu/serving.py``. ``Predictor`` keeps the
 model on its device and routes batches of at most ``fused_max_batch`` rows
-to the fused ConvMixer kernel (``ops/conv_mixer.py``) and larger ones to the
-plain model forward. It runs on the card unless the caller passes
-``device="cpu"``; with no card the default raises.
+to the fused ConvMixer kernel (B2 ``ops/conv_mixer.py`` at conv_nChan 1, B3
+``ops/conv_mixer_mc.py`` above) and larger ones to the plain model forward.
+It runs on the card unless the caller passes ``device="cpu"``; with no card
+the default raises.
 """
 
 from __future__ import annotations
 
 import copy
 import warnings
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -113,22 +114,34 @@ class Predictor:
 
     @classmethod
     def from_checkpoint(cls, model: Optional[nn.Module], path: str,
+                        model_factory: Optional[Callable[[], nn.Module]] = None,
                         **kw) -> "Predictor":
-        """Load a reference torch ``.pt``/``.pth`` state_dict into ``model``.
-        The JAX ``.ckpt`` format (and rebuilding the model from its stored
-        training args) lands with checkpoint interchange."""
+        """Serve a torch ``.pt``/``.pth``: a reference state_dict or the
+        trainers' ``train_state.pt``, loaded into ``model`` strictly.
+        ``model=None`` rebuilds the trained architecture from a
+        ``train_state.pt``'s stored training args (as the JAX Predictor does
+        from its ``.ckpt``); a bare state_dict carries none and takes
+        ``model_factory()``. The JAX ``.ckpt`` format lands with checkpoint
+        interchange."""
         if not path.endswith((".pt", ".pth")):
             raise NotImplementedError(
-                f"{path}: only reference torch .pt/.pth checkpoints load here; "
-                ".ckpt lands with checkpoint interchange (ROADMAP queue A "
-                "item 14)")
-        if model is None:
-            raise ValueError(
-                f"{path}: a .pt state_dict carries no architecture; pass the "
-                "model explicitly")
-        from .models.torch_io import load_pt_into
+                f"{path}: only torch .pt/.pth checkpoints load here; .ckpt "
+                "lands with checkpoint interchange (ROADMAP queue A item 14)")
+        from .models.torch_io import read_weights
 
-        return cls(load_pt_into(model, path), **kw)
+        state_dict, meta = read_weights(path)
+        if model is None:
+            if meta:
+                from .cli._runner import model_from_checkpoint_meta
+
+                model = model_from_checkpoint_meta(meta)
+            elif model_factory is not None:
+                model = model_factory()
+            else:
+                raise ValueError(
+                    f"{path}: a .pt state_dict carries no architecture; pass "
+                    "the model or a model_factory")
+        return cls(model, state_dict, **kw)
 
     @torch.inference_mode()
     def predict(self, x) -> torch.Tensor:

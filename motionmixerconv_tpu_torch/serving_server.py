@@ -15,6 +15,8 @@ Transport is a dependency-free ``ThreadingHTTPServer``:
 - ``GET  /stats``                   requests/batches/mean batch size/latency
 
 Run: ``python -m motionmixerconv_tpu_torch.serving_server --model_path m.pt``
+(a ``train_state.pt`` rebuilds its model from the stored training args; a
+bare state_dict takes the shape flags).
 """
 
 from __future__ import annotations
@@ -377,10 +379,13 @@ def build_parser():
     ap = argparse.ArgumentParser(description="Serve a trained model over HTTP "
                                              "with dynamic micro-batching.")
     ap.add_argument("--model_path", required=True,
-                    help=".pt (reference torch state_dict)")
+                    help=".pt: a trainer's train_state.pt or a reference "
+                         "torch state_dict")
     ap.add_argument("--arch", choices=["auto", "conv", "mlp"], default="auto",
-                    help="auto = conv for a .pt (it carries no architecture); "
-                         "the model is built from the flags below")
+                    help="auto rebuilds the architecture from a "
+                         "train_state.pt's stored training args, falling "
+                         "back to the flags below (conv) for a bare "
+                         "state_dict")
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=8476)
     ap.add_argument("--max_batch", type=int, default=128)
@@ -426,11 +431,26 @@ def model_from_args(args) -> "torch.nn.Module":
     )
 
 
+def load_predictor(args, device):
+    """The Predictor the serving CLI serves on ``device``: with ``--arch
+    auto`` a ``train_state.pt`` rebuilds its model from the stored training
+    args (JAX serving_server.py:439-447); otherwise, and for a bare
+    state_dict, the model comes from the shape flags."""
+    from .serving import Predictor
+
+    if args.arch == "auto":
+        return Predictor.from_checkpoint(
+            None, args.model_path, model_factory=lambda: model_from_args(args),
+            device=device)
+    return Predictor.from_checkpoint(model_from_args(args), args.model_path,
+                                     device=device)
+
+
 def main(argv: Optional[list] = None) -> None:
     """CLI: serve a checkpoint on the card. Model flags mirror the reference
     defaults."""
     args = build_parser().parse_args(argv)
-    from .serving import Predictor, resolve_device
+    from .serving import resolve_device
 
     devices = None
     device = resolve_device("cuda")
@@ -441,8 +461,7 @@ def main(argv: Optional[list] = None) -> None:
                 f"--replicas {args.replicas} exceeds the {n} visible devices")
         devices = [torch.device(f"cuda:{i}") for i in range(args.replicas)]
         device = devices[0]
-    predictor = Predictor.from_checkpoint(model_from_args(args),
-                                          args.model_path, device=device)
+    predictor = load_predictor(args, device)
     print("warming up (every batch bucket"
           + (f" on {len(devices)} replicas" if devices else "") + ")...",
           flush=True)

@@ -92,7 +92,7 @@ def test_packed_layout_matches_spec():
 
 
 @pytest.mark.parametrize("over,match", [
-    (dict(conv_nChan=2), "conv_nChan"),
+    (dict(conv_nChan=13), "conv_nChan"),  # R = 130 > 128: no kernel
     (dict(conv1_padding=(0, 0)), "same"),
     (dict(conv1_stride=(1, 2), conv1_padding=(0, 1)), "same"),
     (dict(dimPosEmb=1024), "limits"),

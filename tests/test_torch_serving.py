@@ -22,7 +22,7 @@ from motionmixerconv_tpu.models import ConvMixer as JaxConvMixer
 from motionmixerconv_tpu.serving import Predictor as JaxPredictor
 from motionmixerconv_tpu_torch import serving_server
 from motionmixerconv_tpu_torch.models import ConvMixer, state_dict_from_jax
-from motionmixerconv_tpu_torch.ops import conv_mixer, harmonic
+from motionmixerconv_tpu_torch.ops import conv_mixer, conv_mixer_mc, harmonic
 from motionmixerconv_tpu_torch.serving import Predictor
 from motionmixerconv_tpu_torch.serving_server import BatchingPredictor, PredictionServer
 
@@ -138,13 +138,134 @@ def test_replicate_to_copies_the_weights():
 
 
 def test_shapes_outside_the_kernel_fall_back_with_a_warning():
-    cfg = dict(SMALL, conv_nChan=2)  # needs kernel B3, not ported yet
+    # conv_nChan * in_nTP = 130 > 128: outside B3, as outside the JAX kernel
+    cfg = dict(SMALL, conv_nChan=13)
     with pytest.warns(UserWarning, match="fused kernel unavailable"):
         p = Predictor(ConvMixer(**cfg), device="cpu")
     assert "conv_nChan" in p.fused_fallback_reason
-    before = conv_mixer.PLAIN_CALLS.value
+    before = (conv_mixer.PLAIN_CALLS.value, conv_mixer_mc.PLAIN_CALLS.value)
     assert p.predict(_x(2, cfg)).shape == (2, 5, 66)
-    assert conv_mixer.PLAIN_CALLS.value == before
+    assert (conv_mixer.PLAIN_CALLS.value,
+            conv_mixer_mc.PLAIN_CALLS.value) == before
+
+
+def test_predict_routes_multichannel_to_b3_and_matches_jax():
+    """A conv_nChan >= 2 BatchNorm model (the autoregressive family) goes
+    through the B3 wrapper at B <= fused_max_batch and the plain forward
+    above, both against the JAX Predictor. Tolerances as for B2: 3e-4 on
+    the fused path (the Pallas kernel's test tolerance), 2e-5 on the plain
+    forward."""
+    cfg = dict(SMALL, conv_nChan=4, conv1_kernel_shape=(3, 3),
+               conv1_padding=None, regularization=-1.0,
+               encoder_n_harmonic_functions=0)
+    jmodel, variables, sd = _both(cfg)
+    jp = JaxPredictor(jmodel, variables)
+    p = Predictor(ConvMixer(**cfg), sd, device="cpu", fused_max_batch=4)
+    assert type(p._fused).__name__ == "FusedConvMixerMC"
+    small, big = _x(3, cfg), _x(6, cfg, seed=2)
+    before = conv_mixer_mc.PLAIN_CALLS.value
+    np.testing.assert_allclose(p.predict(small).numpy(),
+                               np.asarray(jp.predict(small)), atol=3e-4)
+    assert conv_mixer_mc.PLAIN_CALLS.value == before + 1
+    np.testing.assert_allclose(p.predict(big).numpy(),
+                               np.asarray(jp.predict(big)), atol=2e-5)
+    assert conv_mixer_mc.PLAIN_CALLS.value == before + 1
+    q = p.replicate_to("cpu")
+    assert type(q._fused).__name__ == "FusedConvMixerMC" and q._fused is not p._fused
+    torch.testing.assert_close(q.predict(small), p.predict(small), rtol=0, atol=0)
+
+
+def _train_state(tmp_path, cli_module, argv, in_ntp, out_ntp):
+    """A trainer's train_state.pt for a model built from ``argv`` by the
+    port's CLI parser, as the CLI's run would write it."""
+    from motionmixerconv_tpu_torch.cli._runner import build_conv_mixer
+    from motionmixerconv_tpu_torch.train import make_optimizer, save_checkpoint
+
+    args = cli_module.parse_args(argv)
+    if hasattr(args, "kernel1_x"):
+        args.conv1_kernel_shape = (args.kernel1_x, args.kernel1_y)
+    model = build_conv_mixer(args, 66, 66, in_ntp, out_ntp,
+                             generator=torch.Generator().manual_seed(0))
+    path = str(tmp_path / "train_state.pt")
+    save_checkpoint(path, model, make_optimizer(model.parameters(), lr=1e-3),
+                    0, meta=vars(args))
+    return path, model.eval()
+
+
+AR_SMALL_ARGV = ["--loss_type", "mpjpe", "--num_blocks", "1",
+                 "--hidden_dim", "16", "--conv_nChan", "3", "--kernel1_x", "3"]
+
+
+def test_from_checkpoint_rebuilds_the_model_from_train_state(tmp_path):
+    """``model=None`` rebuilds the trained architecture from the
+    train_state.pt meta, for both trainers' checkpoints, and serves it:
+    the autoregressive model through B3, the direct one through B2."""
+    from motionmixerconv_tpu_torch.cli import train_autoreg_mixer_h36m, train_mixer_h36m
+
+    path, model = _train_state(tmp_path, train_autoreg_mixer_h36m,
+                               AR_SMALL_ARGV, 10, 5)
+    p = Predictor.from_checkpoint(None, path, device="cpu")
+    assert type(p._fused).__name__ == "FusedConvMixerMC"
+    assert (p.model.conv_nChan, p.model.dimPosEmb, p.model.out_nTP) == (3, 16, 5)
+    assert p.model.conv1_kernel_shape == (3, 5) and p.model.regularization == -1.0
+    x = _x(4, dict(in_nTP=10, dimPosIn=66))
+    with torch.no_grad():
+        want = model(torch.from_numpy(x))
+    torch.testing.assert_close(p.predict(x), want, rtol=0, atol=2e-5)
+
+    d = tmp_path / "direct"
+    d.mkdir()
+    path, model = _train_state(
+        d, train_mixer_h36m, ["--loss_type", "mpjpe", "--num_blocks", "1",
+                              "--hidden_dim", "12"], 10, 25)
+    p = Predictor.from_checkpoint(None, path, device="cpu")
+    assert type(p._fused).__name__ == "FusedConvMixer"
+    with torch.no_grad():
+        want = model(torch.from_numpy(x))
+    torch.testing.assert_close(p.predict(x), want, rtol=0, atol=2e-5)
+
+
+def test_model_from_checkpoint_meta_refuses_the_mlp_family():
+    from motionmixerconv_tpu_torch.cli._runner import model_from_checkpoint_meta
+
+    with pytest.raises(NotImplementedError, match="item 11"):
+        model_from_checkpoint_meta({"model_type": "mlp", "num_blocks": 1})
+    with pytest.raises(NotImplementedError, match="item 11"):
+        model_from_checkpoint_meta({"tokens_mlp_dim": 20})  # AMASS: no flag
+
+
+def test_serving_cli_arch_auto_rebuilds_from_train_state(tmp_path, monkeypatch):
+    """``--arch auto`` serves a train_state.pt as its meta describes, over
+    shape flags that say otherwise, reading the file once; a bare
+    state_dict takes the flags."""
+    from motionmixerconv_tpu_torch.cli import train_autoreg_mixer_h36m
+
+    path, model = _train_state(tmp_path, train_autoreg_mixer_h36m,
+                               AR_SMALL_ARGV, 10, 5)
+    parse = serving_server.build_parser().parse_args
+    loads = []
+    real_load = torch.load
+    monkeypatch.setattr(torch, "load",
+                        lambda *a, **k: loads.append(a[0]) or real_load(*a, **k))
+    p = serving_server.load_predictor(parse(["--model_path", path]), "cpu")
+    assert loads == [path]
+    monkeypatch.setattr(torch, "load", real_load)
+    assert type(p._fused).__name__ == "FusedConvMixerMC"
+    x = _x(2, dict(in_nTP=10, dimPosIn=66))
+    with torch.no_grad():
+        torch.testing.assert_close(p.predict(x), model(torch.from_numpy(x)),
+                                   rtol=0, atol=2e-5)
+    with pytest.raises(RuntimeError, match="state_dict"):  # flags disagree
+        serving_server.load_predictor(
+            parse(["--model_path", path, "--arch", "conv"]), "cpu")
+
+    bare = str(tmp_path / "m.pt")
+    torch.save(ConvMixer(**SMALL).state_dict(), bare)
+    flags = ["--model_path", bare, "--num_blocks", "1", "--hidden_dim", "24",
+             "--output_n", "5", "--n_harmonic_functions", "4"]
+    p = serving_server.load_predictor(parse(flags), "cpu")
+    assert type(p._fused).__name__ == "FusedConvMixer"
+    assert p.predict(_x(2, SMALL)).shape == (2, 5, 66)
 
 
 def test_default_device_raises_without_a_card(monkeypatch, tmp_path):

@@ -45,6 +45,16 @@ FLAGSHIP_NO_DROPOUT = dict(
     encoder_n_harmonic_functions=64, encoder_omega0=0.1)
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """These tests compute small tensors, which one intra-op thread does as
+    fast as eight; the suite's parallel workers share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def g():
     return np.load(os.path.join(GOLDEN, "train_parity.npz"))

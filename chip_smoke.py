@@ -20,8 +20,15 @@ bit-identity, [12] the autoregressive training CLI (``--loss_type mpjpe``,
 one teacher-forcing and one closed-loop epoch at the default widths), its
 ``train_state.pt`` rebuilt and served through B3 in process and over HTTP
 (launch counts reset just before and read just after), [13]
-autoregressive training times. Then one JSON line with every kernel's numbers, the card's
-name and power limit, and the result line. Any failure exits non-zero; with
+autoregressive training times, [14] the fused MlpMixer forward (B4) against
+its plain version at the AMASS default, a BatchNorm + max-pool, a
+channel-only, a token-only, a long-window (activations in device scratch)
+and a wide shape (weights read in place), twice for bit-identity, [15] the AMASS training CLI (2 epochs at its default widths on
+a synthetic corpus), its ``train_state.pt`` served through B4 in process and
+over HTTP with ``--arch auto`` (launch counts reset just before the CLI and
+read just after the serving), [16] B4, serving and AMASS training times.
+Then one JSON line with every kernel's numbers, the card's name and power
+limit, and the result line. Any failure exits non-zero; with
 no CUDA device, or with the port's package missing beside this script, it
 exits at once and prints no result.
 """
@@ -66,6 +73,12 @@ B3_BATCHES = (1, 7, 32, 128)
 AR_ARGV = ["--loss_type", "mpjpe", "--n_epochs", "2",
            "--n_epochs_teacher_forcing", "1", "--skip_rate", "5"]
 BULK_ROWS = 256
+TOL_B4 = 1e-4    # f32, the MLPs' sums (up to 128 terms) in different orders
+B4_BATCHES = (1, 7, 32, 128)
+# the AMASS CLI's synthetic corpus: every AMASS_SPLITS directory, 3 subjects
+# x 4 recordings of 600 frames at 50 fps (~25,500 train windows at skip 1)
+AMASS_CORPUS = dict(n_subjects=3, n_acts=4, n_frames=600)
+AMASS_ARGV = ["--n_epochs", "2"]  # the AMASS CLI at its defaults
 DEVICE = "cuda:0"  # the one card the script needs
 # H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores, HBM3
 PEAK_F32_FLOPS = 67e12
@@ -91,13 +104,34 @@ AUTOREG = dict(
 STUDY = dict(AUTOREG, num_blocks=6, out_nTP=10, conv1_kernel_shape=(5, 9),
              mode_conv="once", activation="gelu", regularization=0.1)
 
+# the AMASS CLI's default MlpMixer (train_mixer_amass.py, bench.py's AMASS
+# shape) and the variants B4 takes
+AMASS_MLP = dict(
+    num_classes=54, num_blocks=5, hidden_dim=128, tokens_mlp_dim=20,
+    channels_mlp_dim=128, seq_len=10, pred_len=25, activation="gelu",
+    regularization=0.1, input_size=54, r_se=8, use_se=True)
+B4_SHAPES = {
+    "amass": (AMASS_MLP, B4_BATCHES),
+    "bn+maxpool": (dict(AMASS_MLP, regularization=-1.0, use_max_pooling=True,
+                        activation="mish"), B4_BATCHES),
+    "channel_only": (dict(AMASS_MLP, mlp_block_type="channel_only"),
+                     B4_BATCHES),
+    "token_only": (dict(AMASS_MLP, mlp_block_type="token_only"), B4_BATCHES),
+    # activations beyond one block's shared memory: the scratch path
+    "long_window": (dict(AMASS_MLP, seq_len=240, pred_len=60, num_blocks=2),
+                    (1, 7)),
+    # a matrix beyond the shared weight buffer: weights read in place
+    "wide": (dict(AMASS_MLP, hidden_dim=300, channels_mlp_dim=260,
+                  num_blocks=1), (1, 7)),
+}
+
 
 def warm_batchnorm(torch, model, gen):
     """``model`` with random BatchNorm affines and running stats, so that the
     folded inference affine is not the identity."""
     with torch.no_grad():
         for m in model.modules():
-            if isinstance(m, torch.nn.BatchNorm2d):
+            if isinstance(m, (torch.nn.BatchNorm1d, torch.nn.BatchNorm2d)):
                 m.weight.uniform_(0.5, 1.5, generator=gen)
                 m.bias.uniform_(-0.2, 0.2, generator=gen)
                 m.running_mean.uniform_(-0.5, 0.5, generator=gen)
@@ -168,18 +202,21 @@ def device_us(torch, fn, kernel: str, reps: int = 20):
     ``fn``; None where the trace shows no device time for it."""
     from torch.profiler import ProfilerActivity, profile
 
+    from torch.autograd import DeviceType
+
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total, count = 0.0, 0
-    for ev in prof.key_averages():
-        if kernel in ev.key:
-            total += getattr(ev, "device_time_total", 0.0)
-            count += ev.count
-    return total / count if count and total > 0 else None
+    for _ in range(3):  # a trace that misses the kernel is taken again
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        times = [e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == DeviceType.CUDA and kernel in e.name]
+        if times and sum(times) > 0:
+            return sum(times) / len(times)
+    return None
 
 
 def profile_steps(torch, step, steps: int = 20) -> str:
@@ -222,16 +259,18 @@ def profile_steps(torch, step, steps: int = 20) -> str:
             + "; ".join(f"{n[:60]} {t / steps:.1f} us" for n, t in top))
 
 
-def train_step_fn(torch, dev, trainer, seed: int, steps: int = 20):
+def train_step_fn(torch, dev, trainer, seed: int, steps: int = 20,
+                  width: int = 96, scale: float = 300.0,
+                  batch: int = TRAIN_BATCH):
     """``step(i)``: one optimizer step of ``trainer`` on random windows of a
-    random (5000, 96) corpus in mm, batch TRAIN_BATCH; an
-    AutoregressiveTrainer steps closed loop."""
+    random (5000, width) corpus (H36M: 96 coordinates in mm; AMASS: 156 in
+    m), ``batch`` windows; an AutoregressiveTrainer steps closed loop."""
     gen = torch.Generator().manual_seed(seed)
     seq_len = trainer.seq_len
-    frames = (torch.randn(5000, 96, generator=gen) * 300.0).to(dev)
-    starts = torch.randint(0, 5000 - seq_len, (2 * steps, TRAIN_BATCH),
+    frames = (torch.randn(5000, width, generator=gen) * scale).to(dev)
+    starts = torch.randint(0, 5000 - seq_len, (2 * steps, batch),
                            generator=gen).to(dev)
-    w = torch.ones(TRAIN_BATCH, device=dev)
+    w = torch.ones(batch, device=dev)
     trainer.model.train()
     if hasattr(trainer, "train_step_ar"):
         return lambda i: trainer.train_step_ar(frames, starts[i], w, False)
@@ -305,6 +344,43 @@ def b3_work(spec, batch: int, n_weights: int):
     return nbytes, ops
 
 
+def model_floats(model) -> int:
+    """Floats of a model's own state: its parameters and floating-point
+    buffers (BatchNorm's running statistics). The packed buffer B4 reads is
+    larger (its BatchNorm fold planes are (T, H) per block), but the
+    function needs only these."""
+    return sum(t.numel() for t in (*model.parameters(), *model.buffers())
+               if t.is_floating_point())
+
+
+def b4_work(spec, batch: int, n_weights: int):
+    """(bytes, operations) the fused MlpMixer forward needs for ``batch``
+    samples, ``n_weights`` being the model's own floats (``model_floats``):
+    each input, weight and output element moved once; a
+    multiply-add counted as two operations, every other multiply, add,
+    comparison and transcendental as one (LayerNorm 7 a value, GELU or mish
+    8, as ``b2_work``)."""
+    T, D, H, P, NC, S = spec.T, spec.D, spec.H, spec.P, spec.NC, spec.S
+    tok, ch, th = spec.tok, spec.ch, spec.T * spec.H
+    se = (2 * th + 4 * T * S + 4 * T) if spec.use_se else 0  # squeeze, fcs, gate
+    per_block = 0
+    if spec.has_tok:
+        per_block += (7 * th + 2 * H * T * tok + 9 * H * tok  # LN, fc1, bias+act
+                      + 2 * H * tok * T + 2 * th + se + th)   # fc2, fold, SE, res
+    else:
+        per_block += se + th  # the channel-only block's x + se(x)
+    if spec.has_ch:
+        per_block += (7 * th + 2 * T * H * ch + 9 * T * ch
+                      + 2 * T * ch * H + 2 * th + se + th)
+    else:
+        per_block += th  # the token-only block's second residual
+    embed = 2 * T * D * H + th
+    head = 7 * th + 2 * H * T * P + P * H + 2 * P * H * NC + P * NC
+    ops = batch * (embed + spec.num_blocks * per_block + head)
+    nbytes = 4 * (batch * T * D + n_weights + batch * P * NC)
+    return nbytes, ops
+
+
 def b1_work(rows: int, d: int, n: int, e: int, impl: str):
     """(bytes, operations) of the fused harmonic forward for ``rows`` rows."""
     nbytes = 4 * (rows * d + 2 * n * d * e + e + n + rows * e)
@@ -363,8 +439,9 @@ def main() -> None:
         fail(f"the port's package is not beside this script: {e}")
     if Path(pkg.__file__).resolve().parent.parent != ROOT:
         fail(f"imported the port from {pkg.__file__}, not from {ROOT}")
-    from motionmixerconv_tpu_torch.models import ConvMixer
-    from motionmixerconv_tpu_torch.ops import _build, conv_mixer, conv_mixer_mc, harmonic
+    from motionmixerconv_tpu_torch.models import ConvMixer, MlpMixer
+    from motionmixerconv_tpu_torch.ops import (_build, conv_mixer, conv_mixer_mc,
+                                               harmonic, mlp_mixer)
     from motionmixerconv_tpu_torch.serving import Predictor
     from motionmixerconv_tpu_torch.serving_server import PredictionServer
 
@@ -948,6 +1025,175 @@ def main() -> None:
         f" | whole CLI run s {ar_run_s:.2f} | profiled closed-loop steps "
         f"(batch {TRAIN_BATCH}): {ar_prof}")
 
+    # [14] B4 against its plain version at the AMASS default and the
+    # variants it takes, twice for bit-identity
+    gm = torch.Generator().manual_seed(SEED + 9)
+    b4_err, parts, b4_fused = 0.0, [], {}
+    with torch.no_grad():
+        for tag, (cfg, batches) in B4_SHAPES.items():
+            model = warm_batchnorm(torch, MlpMixer(**cfg, generator=gm).eval(),
+                                   gm).to(dev)
+            fused = mlp_mixer.make_fused_mlp_mixer(model)
+            spec = fused.spec
+            if (spec.uses_scratch, spec.wbuf_floats() == 0) != (
+                    tag == "long_window", tag == "wide"):
+                fail(f"B4 {tag}: uses_scratch {spec.uses_scratch}, weight "
+                     f"buffer {spec.wbuf_floats()} floats")
+            x_m = (torch.randn(max(batches), spec.T, spec.D, generator=gm)
+                   * 0.5).to(dev)
+            b4_fused[tag] = (fused, x_m, model_floats(model))
+            for b in batches:
+                xb = x_m[:b].contiguous()
+                got = mlp_mixer.mlp_mixer_fused(xb, fused.weights, spec)
+                again = mlp_mixer.mlp_mixer_fused(xb, fused.weights, spec)
+                want = mlp_mixer.mlp_mixer_plain(xb, fused.weights, spec)
+                module = model(xb)
+                torch.cuda.synchronize()
+                if not torch.isfinite(got).all():
+                    fail(f"B4 {tag} B={b}: non-finite output")
+                if not torch.equal(got, again):
+                    fail(f"B4 {tag} B={b}: two launches differ")
+                err = float((got - want).abs().max())
+                b4_err = max(b4_err, err)
+                parts.append(f"{tag} B={b} {err:.3e} (module "
+                             f"{float((got - module).abs().max()):.1e})")
+    say(f"[14 B4 mlp_mixer_fused vs plain] max_abs_err {b4_err:.3e} (tol "
+        f"{TOL_B4:g}), second launch bit-identical, activations in scratch "
+        "(long_window) and weights read in place (wide) as the wrapper "
+        "placed them | " + " ; ".join(parts))
+    if not b4_err <= TOL_B4:
+        fail(f"B4 disagrees with its plain version: {b4_err:.3e} > {TOL_B4:g}")
+
+    # [15] the AMASS path: the CLI at its default widths for 2 epochs on a
+    # synthetic corpus, its train_state.pt served through B4 in process and
+    # over HTTP with --arch auto (launch counts reset just before the CLI and
+    # read just after the serving)
+    from motionmixerconv_tpu_torch import serving_server
+    from motionmixerconv_tpu_torch.cli import train_mixer_amass
+    from motionmixerconv_tpu_torch.data import AMASSDataset
+    from motionmixerconv_tpu_torch.data.constants import AMASS_DIM_USED, AMASS_SPLITS
+
+    amass_dir = work / "amass"
+    t0 = time.perf_counter()
+    shutil.rmtree(amass_dir, ignore_errors=True)
+    fixtures.make_amass_corpus(str(amass_dir), splits=AMASS_SPLITS,
+                               seed=SEED, **AMASS_CORPUS)
+    amass_corpus_s = time.perf_counter() - t0
+    am_save = work / "runs_amass"
+    shutil.rmtree(am_save, ignore_errors=True)
+    am_argv = [*AMASS_ARGV, "--data_dir", str(amass_dir), "--save_path",
+               str(am_save)]
+    am_args = train_mixer_amass.parse_args(am_argv)
+    counters["mlp_mixer_fused"] = mlp_mixer.LAUNCHES
+    for c in (*counters.values(), mlp_mixer.PLAIN_CALLS):
+        c.reset()
+    t0 = time.perf_counter()
+    am_hist = train_mixer_amass.main(am_argv)
+    am_run_s = time.perf_counter() - t0
+    am_state = str(am_save / "amass_3d_25frames_ckpt" / _runner.STATE_FILE)
+    served_am = Predictor.from_checkpoint(None, am_state, device=dev)
+    am_test = AMASSDataset(str(amass_dir), 10, 25, 1, split=2)
+    am_win = torch.as_tensor(np.stack([am_test[i] for i in range(32)]))
+    x_am = am_win.reshape(32, 35, -1)[:, :10, AMASS_DIM_USED].contiguous()
+    got = served_am.predict(x_am)
+    http_pred = serving_server.load_predictor(
+        serving_server.build_parser().parse_args(
+            ["--model_path", am_state, "--arch", "auto"]), dev)
+    am_server = PredictionServer(http_pred, port=0, warmup=True)
+    am_server.start_background()
+    am_base = f"http://127.0.0.1:{am_server.port}"
+    http_am = post(am_base, "/predict", {"inputs": x_am[:5].tolist()})["outputs"]
+    torch.cuda.synchronize()
+    am_launches = {k: c.value for k, c in counters.items()}
+    am_plain_calls = mlp_mixer.PLAIN_CALLS.value
+    with torch.no_grad():
+        want = served_am.model(x_am.to(dev))  # the loaded nn.Module, plain
+    am_scale = max(1.0, float(want.abs().max()))
+    am_err = float((got - want).abs().max()) / am_scale
+    http_am = torch.tensor(http_am, dtype=torch.float32)
+    am_http_err = float((http_am - want[:5].cpu()).abs().max()) / am_scale
+    n_train_am = len(AMASSDataset(str(amass_dir), 10, 25, 1, split=0))
+    n_val_am = len(AMASSDataset(str(amass_dir), 10, 25, 1, split=1))
+    am_steps = -(-n_train_am // am_args.batch_size)
+    values = [*am_hist["train"], *am_hist["val"], *am_hist["test"]]
+    say(f"[15 AMASS CLI {' '.join(AMASS_ARGV)}] corpus written in "
+        f"{amass_corpus_s:.1f} s: {n_train_am} train, {n_val_am} val, "
+        f"{len(am_test)} test windows, batch {am_args.batch_size} | model "
+        f"{type(served_am._fused).__name__} hidden {served_am.model.hidden_dim}"
+        f" blocks {served_am.model.num_blocks} | train loss {am_hist['train']}"
+        f" | val {am_hist['val']} | test mpjpe mm {am_hist['test']} | "
+        f"launches on the path {am_launches}, plain-version calls "
+        f"{am_plain_calls} | train_state.pt served through B4 (b=32 test "
+        f"windows) vs the plain forward: max abs err / max(1, max|out| = "
+        f"{am_scale:.3f}) {am_err:.3e}; /predict --arch auto b=5 "
+        f"{am_http_err:.3e} (tol {TOL_E2E:g})")
+    if not all(np.isfinite(float(v)) for v in values):
+        fail(f"AMASS run: non-finite loss or metric in {values}")
+    if not am_hist["train"][1] < am_hist["train"][0]:
+        fail(f"AMASS run: the train loss did not fall: {am_hist['train']}")
+    if am_launches["mlp_mixer_fused"] < 1 or am_plain_calls != 0:
+        fail(f"AMASS checkpoint: B4 launched {am_launches['mlp_mixer_fused']}"
+             f" times, the plain version called {am_plain_calls} times")
+    if got.shape != (32, 25, 54) or not torch.isfinite(got).all() \
+            or not am_err <= TOL_E2E or not am_http_err <= TOL_E2E:
+        fail(f"served AMASS checkpoint: shape {tuple(got.shape)}, err "
+             f"{am_err:.3e}, /predict err {am_http_err:.3e}")
+
+    # [16] B4, serving and AMASS training times
+    b4_t, b4_dev = {}, {}
+    with torch.no_grad():
+        fused, x_m, n_model = b4_fused["amass"]
+        spec, wts = fused.spec, fused.weights
+        for b in (1, 32, 128):
+            xb = x_m[:b].contiguous()
+            b4_t[b] = (
+                cuda_ms(torch, lambda: mlp_mixer.mlp_mixer_fused(xb, wts, spec)),
+                cuda_ms(torch, lambda: mlp_mixer.mlp_mixer_plain(xb, wts, spec)),
+                bound(*b4_work(spec, b, n_model)))
+            b4_dev[b] = device_us(
+                torch, lambda: mlp_mixer.mlp_mixer_fused(xb, wts, spec),
+                "mlp_mixer_kernel")
+            if b4_dev[b] is None:
+                fail(f"B4 B={b}: the profiler shows no device time for "
+                     "mlp_mixer_kernel")
+    del b4_fused
+    am_pred_lat = {}
+    x_bulk_am = (torch.randn(BULK_ROWS, 10, 54, generator=gm) * 0.3)
+    for b in (1, 32, 128, BULK_ROWS):
+        xb = x_bulk_am[:b].clone()
+        served_am.predict(xb).cpu()
+        am_pred_lat[b] = host_median_ms(lambda: served_am.predict(xb).cpu())
+    payload = {"inputs": x_am[:1].tolist()}
+    am_http_lat = host_median_ms(lambda: post(am_base, "/predict", payload))
+    am_server.close()
+    model = MlpMixer(**AMASS_MLP,
+                     generator=torch.Generator().manual_seed(SEED + 10)).to(dev)
+    am_prof = profile_steps(torch, train_step_fn(torch, dev, Trainer(
+        model, make_optimizer(model.parameters(), lr=1e-3), loss_type="mpjpe",
+        dim_used=AMASS_DIM_USED, input_n=10, output_n=25, input_scale=1.0,
+        loss_scale=1000.0), SEED + 10, width=156, scale=0.3,
+        batch=am_args.batch_size))
+    del model
+    say(f"[16 AMASS times] {card} | B4 mlp_mixer_fused kernel/plain ms (bound "
+        "ms, by): " + " ; ".join(
+            f"B={b} {k:.4f}/{p:.4f} ({bd[0]:.5f}, {bd[1]})"
+            for b, (k, p, bd) in b4_t.items())
+        + " | profiler device us/launch: " + " ; ".join(
+            f"B={b} {'not measured' if v is None else f'{v:.2f}'}"
+            for b, v in b4_dev.items())
+        + " | Predictor.predict latency ms (host clock, to a CPU array): "
+        + " ; ".join(f"b={b} {v:.3f}" for b, v in am_pred_lat.items())
+        + f" | HTTP /predict b=1 {am_http_lat:.3f} ms"
+        + f" | epochs 0, 1: train s {am_hist['train_s'][0]:.3f}, "
+          f"{am_hist['train_s'][1]:.3f} | train samples/s "
+          f"{n_train_am / am_hist['train_s'][0]:.1f}, "
+          f"{n_train_am / am_hist['train_s'][1]:.1f} | step ms "
+          f"{am_hist['train_s'][0] / am_steps * 1e3:.3f}, "
+          f"{am_hist['train_s'][1] / am_steps * 1e3:.3f} ({am_steps} steps) | "
+          f"epoch s (train+val+test+ckpt) {am_hist['epoch_s'][0]:.3f}, "
+          f"{am_hist['epoch_s'][1]:.3f} | whole CLI run s {am_run_s:.2f} | "
+          f"profiled train steps (batch {am_args.batch_size}): {am_prof}")
+
     kernels = [
         {"name": "conv_mixer_fused", "route": "cuda",
          "source": "motionmixerconv_tpu_torch/csrc/conv_mixer_fused.cu",
@@ -985,11 +1231,22 @@ def main() -> None:
          "study": {"ms": b3_t[("study", 128)][0],
                    "plain_ms": b3_t[("study", 128)][1],
                    "bound_ms": b3_t[("study", 128)][2][0]}},
+        {"name": "mlp_mixer_fused", "route": "cuda",
+         "source": "motionmixerconv_tpu_torch/csrc/mlp_mixer_fused.cu",
+         "replaces": "motionmixerconv_tpu/ops/pallas_mixer.py:278",
+         "launches": am_launches["mlp_mixer_fused"], "max_abs_err": b4_err,
+         "ms": b4_t[128][0], "plain_ms": b4_t[128][1],
+         "bound_ms": b4_t[128][2][0], "bound_by": b4_t[128][2][1],
+         "library_ms": None,
+         "by_batch": {str(b): {"ms": k, "plain_ms": p, "bound_ms": bd[0],
+                               "device_us": b4_dev[b]}
+                      for b, (k, p, bd) in b4_t.items()}},
     ]
     for k in kernels:
         k["launches_by_path"] = {"serve": launches.get(k["name"], 0),
                                  "train": train_launches.get(k["name"], 0),
-                                 "autoregressive": ar_launches[k["name"]]}
+                                 "autoregressive": ar_launches.get(k["name"], 0),
+                                 "amass": am_launches[k["name"]]}
     say(json.dumps({"kernels": kernels}))
     say(card)
     say(json.dumps({"ok": True, "device": {

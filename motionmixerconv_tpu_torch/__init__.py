@@ -5,14 +5,17 @@ The JAX package beside it is the unchanged reference. This package imports
 Hopper (``csrc/``), built at first use; each has a plain PyTorch version
 that serves CPU tensors.
 
-- ``models``   — PoseEncoder and ConvMixer with the reference state_dict names
+- ``models``   — PoseEncoder, ConvMixer and MlpMixer with the reference
+  state_dict names
 - ``ops``      — activations and the CUDA kernels' wrappers
-- ``data``     — H36M constants, synthetic corpus, windows, the dataset
-- ``geometry`` — rotations and H36M forward kinematics
+- ``data``     — H36M and AMASS constants, synthetic corpora, windows, the
+  datasets
+- ``geometry`` — rotations, H36M and SMPL forward kinematics
 - ``metrics``  — losses and evaluation metrics
 - ``train``    — optimizer, checkpoints, the Trainer, the autoregressive rollout
 - ``logging``  — MetricLogger
-- ``cli``      — ``python -m motionmixerconv_tpu_torch.cli.train_mixer_h36m``
+- ``cli``      — ``python -m motionmixerconv_tpu_torch.cli.train_mixer_h36m``,
+  ``train_autoreg_mixer_h36m``, ``train_mixer_amass``, ``test_mixer_amass``
 - ``serving``  — Predictor; ``serving_server`` — micro-batching HTTP server
 """
 

@@ -1,11 +1,12 @@
-"""The training-run drivers behind the H36M CLIs.
+"""The training-run drivers behind the H36M and AMASS CLIs.
 
 Counterpart of ``motionmixerconv_tpu/cli/_runner.py`` for the direct and the
-autoregressive H36M paths: build the model from the flags, load the three
-splits, train epoch by epoch, validate on S11, run the grouped test over the
-actions, log, and write a checkpoint every epoch. ``model_from_checkpoint_meta``
-rebuilds a trained model from its checkpoint's stored flags. The other
-drivers (AIS, AMASS) land with their slices.
+autoregressive H36M paths and the AMASS MlpMixer path: build the model from
+the flags, load the three splits, train epoch by epoch, validate, test (the
+grouped test over the H36M actions; AMASS's 22-joint scatter test), log,
+and write a checkpoint every epoch. ``model_from_checkpoint_meta`` rebuilds
+a trained model from its checkpoint's stored flags. The AIS drivers land
+with their slice.
 """
 
 from __future__ import annotations
@@ -18,10 +19,10 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..data import H36MDataset
-from ..data.constants import H36M_DIM_USED_XYZ, define_actions
+from ..data import AMASSDataset, H36MDataset
+from ..data.constants import AMASS_DIM_USED, H36M_DIM_USED_XYZ, define_actions
 from ..logging import MetricLogger
-from ..models import ConvMixer
+from ..models import ConvMixer, MlpMixer
 from ..serving import resolve_device
 from ..train import (AutoregressiveTrainer, Trainer, make_optimizer,
                      restore_checkpoint, save_checkpoint)
@@ -66,6 +67,28 @@ def build_conv_mixer(args, dim_in: int, dim_out: int, in_ntp: int,
     )
 
 
+def build_mlp_mixer(args, dim: int, in_ntp: int, out_ntp: int,
+                    generator: Optional[torch.Generator] = None) -> MlpMixer:
+    """MlpMixer from CLI flags (amass/train_mixer_amass.py:250-258
+    defaults); ``generator`` seeds its init."""
+    return MlpMixer(
+        num_classes=dim,
+        num_blocks=args.num_blocks,
+        hidden_dim=args.hidden_dim,
+        tokens_mlp_dim=args.tokens_mlp_dim,
+        channels_mlp_dim=args.channels_mlp_dim,
+        seq_len=in_ntp,
+        pred_len=out_ntp,
+        activation=args.activation,
+        regularization=args.regularization,
+        input_size=dim,
+        r_se=args.r_se,
+        use_max_pooling=False,
+        use_se=True,
+        generator=generator,
+    )
+
+
 def _log_dir(args, model_name: str) -> str:
     log_dir = os.path.join(args.save_path, model_name)
     if (os.path.exists(log_dir) and os.listdir(log_dir)
@@ -99,18 +122,23 @@ def _h36m_splits(args, input_n: int, output_n: int):
     return split(0), split(1), tests
 
 
-def _model_and_optimizer(args, model: Optional[ConvMixer], init_state_dict,
-                         device: torch.device, in_ntp: int, out_ntp: int,
-                         n_train: int):
-    """The model (from the flags, seeded by ``args.seed``, unless given;
+def _model_and_optimizer(args, model: Optional[torch.nn.Module],
+                         init_state_dict, device: torch.device, in_ntp: int,
+                         out_ntp: int, n_train: int):
+    """The model (from the H36M flags, seeded by ``args.seed``, unless
+    given: an MlpMixer with ``model_type mlp``, else a ConvMixer;
     ``init_state_dict`` loaded strictly over it) on ``device``, and its Adam
     with coupled L2 1e-5 and per-batch MultiStepLR."""
     seed = getattr(args, "seed", 0)
     torch.manual_seed(seed)  # the dropout stream (CPU and CUDA generators)
     if model is None:
-        model = build_conv_mixer(args, len(H36M_DIM_USED_XYZ),
-                                 len(H36M_DIM_USED_XYZ), in_ntp, out_ntp,
-                                 generator=torch.Generator().manual_seed(seed))
+        gen = torch.Generator().manual_seed(seed)
+        dim = len(H36M_DIM_USED_XYZ)
+        if getattr(args, "model_type", "conv") == "mlp":
+            model = build_mlp_mixer(args, dim, in_ntp, out_ntp, generator=gen)
+        else:
+            model = build_conv_mixer(args, dim, dim, in_ntp, out_ntp,
+                                     generator=gen)
     if init_state_dict is not None:
         model.load_state_dict(init_state_dict, strict=True)
     model = model.to(device)
@@ -138,24 +166,22 @@ def _combine_test_sets(test_sets: dict, device: torch.device):
             list(test_sets.keys()))
 
 
-def model_from_checkpoint_meta(meta: dict) -> ConvMixer:
+def model_from_checkpoint_meta(meta: dict) -> torch.nn.Module:
     """The model a checkpoint's stored training args (``train_state.pt``
-    meta) describe, for the port's two H36M xyz trainers: direct and
-    autoregressive (``*_model`` window args). The MlpMixer family (AMASS,
-    or ``model_type mlp``) lands with its slice (ROADMAP queue A item 11)
-    and raises."""
+    meta) describe, for the port's trainers: H36M direct (ConvMixer, or
+    MlpMixer with ``model_type mlp``, 66 dims), autoregressive (``*_model``
+    window args) and AMASS (MlpMixer of ``pose_dim`` dims)."""
     # the direct CLI stores model_type; the autoregressive one has none
-    # but stores its kernel shape
+    # but stores its kernel shape; the AMASS one has neither
     model_type = meta.get("model_type",
                           "conv" if "conv1_kernel_shape" in meta else "mlp")
-    if model_type != "conv":
-        raise NotImplementedError(
-            "MlpMixer checkpoints land with the AMASS/MlpMixer slice "
-            "(ROADMAP queue A item 11)")
     in_n = meta.get("input_n_model", meta.get("input_n", 10))
     out_n = meta.get("output_n_model", meta.get("output_n", 25))
+    args = SimpleNamespace(**meta)
+    if model_type == "mlp":
+        return build_mlp_mixer(args, meta.get("pose_dim", 66), in_n, out_n)
     dim = len(H36M_DIM_USED_XYZ)
-    return build_conv_mixer(SimpleNamespace(**meta), dim, dim, in_n, out_n)
+    return build_conv_mixer(args, dim, dim, in_n, out_n)
 
 
 def _train_and_evaluate(
@@ -164,11 +190,15 @@ def _train_and_evaluate(
     test_frames, test_starts, test_gids, action_names, start_epoch: int = 0,
     *, test_kind: str = "h36m_xyz",
     teacher_forcing_epochs: Optional[int] = None,
+    test_batch_size: Optional[int] = None,
+    state_copy_path: Optional[str] = None,
 ):
     """Epoch driver: train -> validate -> grouped per-action test (MPJPE and
-    AUC-PCK of ``test_kind``) -> history, logged scalars, checkpoint.
-    ``teacher_forcing_epochs`` not None selects the autoregressive trainer:
-    teacher forcing while ``epoch`` is below it, closed loop after."""
+    AUC-PCK of ``test_kind``, in batches of ``test_batch_size``, by default
+    ``args.batch_size_test``) -> history, logged scalars, checkpoint (also
+    to ``state_copy_path`` when given). ``teacher_forcing_epochs`` not None
+    selects the autoregressive trainer: teacher forcing while ``epoch`` is
+    below it, closed loop after."""
     if int(getattr(args, "epochs_per_dispatch", 1) or 1) > 1:
         trainer.run_epochs_fused()  # raises: not ported
     autoreg = teacher_forcing_epochs is not None
@@ -192,7 +222,7 @@ def _train_and_evaluate(
         val_loss = trainer.validate(vald, vframes, args.batch_size)
         m1s, m2s, ns = trainer.evaluate_grouped(
             test_frames, test_starts, test_gids, len(action_names),
-            args.batch_size_test, test_kind)
+            test_batch_size or args.batch_size_test, test_kind)
         per_action = {a: (m1s[i] / ns[i], m2s[i] / ns[i])
                       for i, a in enumerate(action_names)}
         m1_avg = m1s.sum() / ns.sum()
@@ -213,6 +243,9 @@ def _train_and_evaluate(
         save_checkpoint(os.path.join(log_dir, STATE_FILE), trainer.model,
                         trainer.optimizer, epoch, meta=vars(args),
                         weights_path=os.path.join(log_dir, WEIGHTS_FILE))
+        if state_copy_path:
+            save_checkpoint(state_copy_path, trainer.model, trainer.optimizer,
+                            epoch, meta=vars(args))
         epoch_s = time.perf_counter() - t0
         history["train_s"].append(train_s)
         history["epoch_s"].append(epoch_s)
@@ -307,6 +340,61 @@ def run_h36m_autoregressive(args, model: Optional[ConvMixer] = None,
             dataset, dataset.frames_on(device), vald, vald.frames_on(device),
             test_frames, test_starts, test_gids, action_names,
             test_kind="ar", teacher_forcing_epochs=args.n_epochs_teacher_forcing)
+    finally:
+        logger.close()
+    return history, trainer
+
+
+def amass_test(trainer: Trainer, corpus, frames: torch.Tensor,
+               batch_size: int) -> float:
+    """AMASS test MPJPE in mm over the corpus (train_mixer_amass.py:
+    153-199): the 18 predicted joints scattered into the 22-joint ground
+    truth. The reference divides by a never-incremented ``n_batches`` and
+    returns inf; here the divisor is the sample count, the value it
+    prints."""
+    m1, _, n = trainer.evaluate_grouped(
+        frames, corpus.window_starts, np.zeros(len(corpus), np.int64), 1,
+        batch_size, "amass22")
+    return float(m1[0] / max(n[0], 1.0))
+
+
+def run_amass(args, model: Optional[MlpMixer] = None,
+              model_name: Optional[str] = None, init_state_dict=None):
+    """AMASS training (amass/train_mixer_amass.py:34-148,153-199) on
+    ``args.dev``: the MlpMixer on 54 dims (joints 4..21), input unscaled
+    (meters), train and validation loss x1000, the 22-joint test (one
+    group, in batches of ``args.batch_size`` as the reference) every epoch,
+    and ``train_state.pt`` + ``model.pt`` every epoch (also to
+    ``args.model_path`` when set). ``init_state_dict`` (reference layout)
+    replaces the seeded init. Returns (history, trainer)."""
+    device = resolve_device(getattr(args, "dev", "cuda"))
+    dataset, vald, test = (AMASSDataset(args.data_dir, args.input_n,
+                                        args.output_n, args.skip_rate, split=s)
+                           for s in range(3))
+    print(f">>> Training dataset length: {len(dataset)}")
+    print(f">>> Validation dataset length: {len(vald)}")
+    if model is None:
+        model = build_mlp_mixer(
+            args, len(AMASS_DIM_USED), args.input_n, args.output_n,
+            generator=torch.Generator().manual_seed(getattr(args, "seed", 0)))
+    model, opt = _model_and_optimizer(
+        args, model, init_state_dict, device, args.input_n, args.output_n,
+        len(dataset))
+    log_dir = _log_dir(args, model_name or f"amass_3d_{args.output_n}frames_ckpt")
+    logger = MetricLogger(log_dir)
+    trainer = Trainer(
+        model, opt, loss_type="mpjpe", dim_used=AMASS_DIM_USED,
+        input_n=args.input_n, output_n=args.output_n, input_scale=1.0,
+        loss_scale=1000.0)
+    print(f"total number of parameters of the network is: {param_count(model)}")
+    try:
+        history = _train_and_evaluate(
+            args, trainer, logger, log_dir,
+            dataset, dataset.frames_on(device), vald, vald.frames_on(device),
+            test.frames_on(device), test.window_starts,
+            np.zeros(len(test), np.int64), ["amass"], test_kind="amass22",
+            test_batch_size=args.batch_size,
+            state_copy_path=getattr(args, "model_path", None))
     finally:
         logger.close()
     return history, trainer

@@ -6,8 +6,9 @@ parser whose per-loss defaults differ (mpjpe: hidden 50 / blocks 4 / lr
 1e-3; angle: hidden 60 / blocks 3 / lr 1e-2). ``--dev`` defaults to
 ``cuda`` and raises without a card; ``--dev cpu`` runs on the CPU.
 
-Flags of later slices raise NotImplementedError naming their ROADMAP item:
-``--loss_type angle`` (A9), ``--model_type mlp`` (A11), ``--visualize``
+``--model_type mlp`` trains an MlpMixer on the 66 dims (``build_mlp_mixer``,
+as the JAX CLI does). Flags of later slices raise NotImplementedError
+naming their ROADMAP item: ``--loss_type angle`` (A9), ``--visualize``
 (A16), ``--epochs_per_dispatch`` > 1 and ``--embed_dtype bf16`` (A19).
 
 Usage: python -m motionmixerconv_tpu_torch.cli.train_mixer_h36m \\
@@ -113,8 +114,6 @@ def _refuse_unported(args) -> None:
     todo = []
     if args.loss_type == "angle":
         todo.append("--loss_type angle (ROADMAP queue A item 9)")
-    if args.model_type == "mlp":
-        todo.append("--model_type mlp (ROADMAP queue A item 11)")
     if args.visualize:
         todo.append("--visualize (ROADMAP queue A item 16)")
     if args.epochs_per_dispatch > 1:

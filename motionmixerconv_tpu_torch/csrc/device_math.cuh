@@ -1,7 +1,7 @@
-// Device helpers shared by the fused ConvMixer kernels (conv_mixer_fused.cu,
-// conv_mixer_mc.cu): warp reductions, the activations with the reference's
-// numerics (precise erff/expf/log1pf/tanhf, no fast math), and the row-wise
-// LayerNorm. Counterparts of `_act` and `_erf` in
+// Device helpers shared by the fused kernels (conv_mixer_fused.cu,
+// conv_mixer_mc.cu, mlp_mixer_fused.cu): warp reductions, the activations
+// with the reference's numerics (precise erff/expf/log1pf/tanhf, no fast
+// math), and the row-wise LayerNorm. Counterparts of `_act` and `_erf` in
 // motionmixerconv_tpu/ops/pallas_mixer.py; CUDA has a precise erff, so the
 // Pallas polynomial stand-in is not needed.
 

@@ -1,7 +1,8 @@
-"""Human3.6M data: constants, the synthetic corpus writer, windowed
-corpora and their samplers, and the dataset."""
+"""Human3.6M and AMASS data: constants, the synthetic corpus writers,
+windowed corpora and their samplers, and the datasets."""
 
 from . import constants, fixtures
+from .amass import AMASSDataset
 from .h36m import H36MDataset, read_csv_floats
 from .windows import (
     WindowedCorpus,
@@ -14,6 +15,7 @@ from .windows import (
 __all__ = [
     "constants",
     "fixtures",
+    "AMASSDataset",
     "H36MDataset",
     "read_csv_floats",
     "WindowedCorpus",

@@ -1,10 +1,10 @@
-"""Human3.6M joint and dimension tables shared by the dataset, the trainer
-and evaluation.
+"""Human3.6M and AMASS joint, dimension and split tables shared by the
+datasets, the trainers and evaluation.
 
-The port's own copy of the H3.6M part of
+The port's own copy of the H3.6M and AMASS parts of
 ``motionmixerconv_tpu/data/constants.py`` (values transcribed from the
-reference, file:line cited per table). AMASS, AIS and CMU tables land with
-their slices.
+reference, file:line cited per table). AIS and CMU tables land with their
+slices.
 """
 
 from __future__ import annotations
@@ -66,3 +66,20 @@ def define_actions(action: str) -> list[str]:
     if action == "all":
         return list(H36M_ACTIONS)
     raise ValueError(f"Unrecognized action: {action}")
+
+
+# --- AMASS -------------------------------------------------------------------
+
+# dataset-directory splits: [train, val, test] (dataloader_amass.py:42-46)
+AMASS_SPLITS = [
+    ["CMU", "MPI_Limits", "TotalCapture", "Eyes_Japan_Dataset", "KIT",
+     "EKUT", "TCD_handMocap", "ACCAD"],
+    ["HumanEva", "MPI_HDM05", "SFU", "MPI_mosh"],
+    ["BioMotionLab_NTroje"],
+]
+
+# 18 moving joints of the 22-joint body (dataloader_amass.py:39)
+AMASS_JOINT_USED = np.arange(4, 22)
+AMASS_TARGET_FPS = 25
+# their 54 coordinates in the flat (52 * 3) frame, the model's input
+AMASS_DIM_USED = np.arange(12, 66)

@@ -1,11 +1,12 @@
-"""Synthetic Human3.6M corpus in the reference's exact on-disk format.
+"""Synthetic Human3.6M and AMASS corpora in the reference's exact on-disk
+formats.
 
-The port's own copy of ``make_h36m_corpus`` from
-``motionmixerconv_tpu/data/fixtures.py`` (numpy only, same random stream,
-so one seed writes the same files from either package). The real corpus is
-licensed and not redistributable; this one makes the CSV expmap pipeline
-testable end to end. The AMASS, CMU and AIS generators land with their
-slices.
+The port's own copy of ``make_h36m_corpus`` and ``make_amass_corpus`` from
+``motionmixerconv_tpu/data/fixtures.py`` (numpy only, same random streams,
+so one seed writes the same files from either package). The real corpora
+are licensed and not redistributable; these make the CSV expmap and the
+SMPL npz pipelines testable end to end. The CMU and AIS generators land
+with their slices.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ import os
 
 import numpy as np
 
-from .constants import H36M_ACTIONS
+from .constants import AMASS_SPLITS, H36M_ACTIONS
 
 
 def _smooth_walk(rng, n_frames: int, dim: int, scale: float) -> np.ndarray:
@@ -51,4 +52,36 @@ def make_h36m_corpus(
                 frames[:, 0:3] += rng.randn(3) * 100.0  # translation-ish
                 path = os.path.join(sdir, f"{action}_{subact}.txt")
                 np.savetxt(path, frames, delimiter=",", fmt="%.6f")
+    return data_dir
+
+
+def make_amass_corpus(
+    data_dir: str,
+    splits=None,
+    n_subjects: int = 1,
+    n_acts: int = 2,
+    n_frames: int = 400,
+    frame_rate: float = 50.0,
+    seed: int = 0,
+) -> str:
+    """Write {dataset}/{subject}/{act}.npz with 'poses' + 'mocap_framerate'.
+
+    Format parity: dataloader_amass.py:106-121 (52-joint axis-angle poses,
+    156 dims, resampled to 25 fps by integer stride). ``splits`` defaults
+    to the first directory of each split.
+    """
+    rng = np.random.RandomState(seed)
+    splits = splits if splits is not None else [s[:1] for s in AMASS_SPLITS]
+    for split_dirs in splits:
+        for ds in split_dirs:
+            for subj in range(n_subjects):
+                sdir = os.path.join(data_dir, ds, f"subject{subj}")
+                os.makedirs(sdir, exist_ok=True)
+                for act in range(n_acts):
+                    poses = _smooth_walk(rng, n_frames, 156, 0.01)
+                    np.savez(
+                        os.path.join(sdir, f"act{act}_poses.npz"),
+                        poses=poses,
+                        mocap_framerate=np.float64(frame_rate),
+                    )
     return data_dir

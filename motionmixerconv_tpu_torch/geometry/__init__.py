@@ -1,4 +1,5 @@
-"""Rotations and Human3.6M forward kinematics (PyTorch)."""
+"""Rotations, Human3.6M forward kinematics and SMPL forward kinematics
+(PyTorch)."""
 
 from .forward_kinematics import expmap2xyz, fkl, h36m_skeleton
 from .rotations import (
@@ -11,6 +12,7 @@ from .rotations import (
     rotmat2expmap,
     rotmat2quat,
 )
+from .smpl import ang2joint, load_smpl_skeleton
 
 __all__ = [
     "expmap2rotmat",
@@ -24,4 +26,6 @@ __all__ = [
     "h36m_skeleton",
     "fkl",
     "expmap2xyz",
+    "ang2joint",
+    "load_smpl_skeleton",
 ]

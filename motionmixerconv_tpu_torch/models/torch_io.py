@@ -1,9 +1,10 @@
 """Weights into the port: JAX-package variables and reference ``.pt`` files.
 
 ``state_dict_from_jax`` is this package's own copy of the JAX package's
-``export_conv_mixer`` (``motionmixerconv_tpu/models/torch_io.py``): it turns
-the flax ConvMixer's variables, given as numpy arrays, into the reference
-torch state_dict that the port's modules load strictly.
+``export_conv_mixer`` and ``export_mlp_mixer``
+(``motionmixerconv_tpu/models/torch_io.py``): it turns a flax ConvMixer's or
+MlpMixer's variables, given as numpy arrays, into the reference torch
+state_dict that the port's modules load strictly.
 """
 
 from __future__ import annotations
@@ -22,10 +23,12 @@ def _linear_out(out: Flat, prefix: str, p: dict) -> None:
         out[f"{prefix}.bias"] = np.asarray(p["bias"])
 
 
-def _se_out(out: Flat, prefix: str, p: dict) -> None:
-    out[f"{prefix}.excitationBlock.0.weight"] = np.ascontiguousarray(
+def _se_out(out: Flat, prefix: str, p: dict, seq_name: str) -> None:
+    """SE weights under the reference Sequential's name: ``excitation``
+    (MlpMixer) or ``excitationBlock`` (ConvMixer)."""
+    out[f"{prefix}.{seq_name}.0.weight"] = np.ascontiguousarray(
         np.asarray(p["fc1"]["kernel"]).T)
-    out[f"{prefix}.excitationBlock.2.weight"] = np.ascontiguousarray(
+    out[f"{prefix}.{seq_name}.2.weight"] = np.ascontiguousarray(
         np.asarray(p["fc2"]["kernel"]).T)
 
 
@@ -84,9 +87,9 @@ def export_conv_mixer_arrays(variables: Dict[str, Any], num_blocks: int,
             _reg_out(out, f"{tp}.conv2.reg", bp["conv2"].get("reg"),
                      bbs.get("conv2", {}).get("reg"))
         if "se" in bp:
-            _se_out(out, f"{tp}.se", bp["se"])
+            _se_out(out, f"{tp}.se", bp["se"], "excitationBlock")
             if "conv2" in bp:
-                _se_out(out, f"{tp}.se2", bp["se"])
+                _se_out(out, f"{tp}.se2", bp["se"], "excitationBlock")
     _layernorm_out(out, "LN", p["LN"])
     w = np.asarray(p["conv_out"]["kernel"])  # (T, P)
     out["conv_out.weight"] = np.ascontiguousarray(w.T)[:, :, None, None]
@@ -98,12 +101,52 @@ def export_conv_mixer_arrays(variables: Dict[str, Any], num_blocks: int,
     return out
 
 
+def export_mlp_mixer_arrays(variables: Dict[str, Any],
+                            num_blocks: int) -> Flat:
+    """flax MlpMixer variables (numpy leaves) -> reference state_dict
+    arrays: ``conv`` as the (H, 1, 1, D) Conv2d, ``conv_out`` as the
+    (P, T, 1) Conv1d, BatchNorm running stats from ``batch_stats``."""
+    p = variables["params"]
+    bs = variables.get("batch_stats", {})
+    out: Flat = {}
+    w = np.asarray(p["conv"]["kernel"])  # (D, H)
+    out["conv.weight"] = np.ascontiguousarray(w.T)[:, None, None, :]
+    out["conv.bias"] = np.asarray(p["conv"]["bias"])
+    for i in range(num_blocks):
+        bp = p[f"Mixer_Block_{i}"]
+        bbs = bs.get(f"Mixer_Block_{i}", {})
+        tp = f"Mixer_Block.{i}"
+        for ln in ("LN1", "LN2"):
+            if ln in bp:
+                _layernorm_out(out, f"{tp}.{ln}", bp[ln])
+        for mb in ("mlp_block_token_mixing", "mlp_block_channel_mixing"):
+            if mb in bp:
+                _linear_out(out, f"{tp}.{mb}.fc1", bp[mb]["fc1"])
+                _linear_out(out, f"{tp}.{mb}.fc2", bp[mb]["fc2"])
+                for reg in ("reg1", "reg2"):
+                    _reg_out(out, f"{tp}.{mb}.{reg}", bp[mb].get(reg),
+                             bbs.get(mb, {}).get(reg))
+        if "se" in bp:
+            _se_out(out, f"{tp}.se", bp["se"], "excitation")
+    _layernorm_out(out, "LN", p["LN"])
+    _linear_out(out, "fc_out", p["fc_out"])
+    w = np.asarray(p["conv_out"]["kernel"])  # (T, P)
+    out["conv_out.weight"] = np.ascontiguousarray(w.T)[:, :, None]
+    out["conv_out.bias"] = np.asarray(p["conv_out"]["bias"])
+    return out
+
+
 def state_dict_from_jax(variables: Dict[str, Any], num_blocks: int,
                         n_harmonic_functions: int = 0,
                         omega0: float = 0.1) -> Dict[str, torch.Tensor]:
-    """flax ConvMixer variables -> the port's ConvMixer state_dict (CPU)."""
-    arrays = export_conv_mixer_arrays(variables, num_blocks,
-                                      n_harmonic_functions, omega0)
+    """flax ConvMixer or MlpMixer variables -> the port's state_dict (CPU).
+    The family is read off the tree: only the ConvMixer has an
+    ``encoder``; the harmonic arguments apply to it alone."""
+    if "encoder" in variables["params"]:
+        arrays = export_conv_mixer_arrays(variables, num_blocks,
+                                          n_harmonic_functions, omega0)
+    else:
+        arrays = export_mlp_mixer_arrays(variables, num_blocks)
     return {k: torch.from_numpy(np.array(v)) for k, v in arrays.items()}
 
 

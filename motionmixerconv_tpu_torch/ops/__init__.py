@@ -1,3 +1,4 @@
 """Activations and the wrappers of the hand-written CUDA kernels
-(``conv_mixer``: fused ConvMixer core; ``harmonic``: fused harmonic
-encoder forward and backward). Kernels are built by ``_build`` at first use."""
+(``conv_mixer`` and ``conv_mixer_mc``: fused ConvMixer cores; ``harmonic``:
+fused harmonic encoder forward and backward; ``mlp_mixer``: fused MlpMixer
+forward). Kernels are built by ``_build`` at first use."""

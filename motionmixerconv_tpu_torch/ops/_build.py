@@ -111,6 +111,8 @@ def _declare(lib) -> None:
     lib.mmc_conv_mixer_mc_smem_bytes.restype = L
     lib.mmc_conv_mixer_mc.argtypes = [p, p, p] + [i] * 16 + [p]
     lib.mmc_conv_mixer_mc.restype = i
+    lib.mmc_mlp_mixer.argtypes = [p] * 4 + [i] * 18 + [p]
+    lib.mmc_mlp_mixer.restype = i
     lib.mmc_harmonic_max_outputs_per_tile.argtypes = []
     lib.mmc_harmonic_max_outputs_per_tile.restype = i
     lib.mmc_harmonic_smem_bytes.argtypes = [i, i, i]

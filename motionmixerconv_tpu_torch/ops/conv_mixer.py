@@ -104,7 +104,7 @@ def _same_equivalent(conv: nn.Conv2d) -> bool:
 def bn_affine(reg: nn.Module, n: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Inference BatchNorm over ``n`` channels as per-channel (scale, shift),
     folded in float64; identity for dropout and no regularization."""
-    if not isinstance(reg, nn.BatchNorm2d):
+    if not isinstance(reg, (nn.BatchNorm1d, nn.BatchNorm2d)):
         return (torch.ones(n, dtype=torch.float64),
                 torch.zeros(n, dtype=torch.float64))
     s = reg.weight.detach().double() / torch.sqrt(

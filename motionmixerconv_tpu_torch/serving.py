@@ -1,24 +1,27 @@
-"""Serving API: batched prediction from a trained ConvMixer on one device.
+"""Serving API: batched prediction from a trained ConvMixer or MlpMixer on
+one device.
 
 Counterpart of ``motionmixerconv_tpu/serving.py``. ``Predictor`` keeps the
 model on its device and routes batches of at most ``fused_max_batch`` rows
-to the fused ConvMixer kernel (B2 ``ops/conv_mixer.py`` at conv_nChan 1, B3
-``ops/conv_mixer_mc.py`` above) and larger ones to the plain model forward.
-It runs on the card unless the caller passes ``device="cpu"``; with no card
-the default raises.
+to the model's fused kernel (a ConvMixer's B2 ``ops/conv_mixer.py`` at
+conv_nChan 1 or B3 ``ops/conv_mixer_mc.py`` above; an MlpMixer's B4
+``ops/mlp_mixer.py``) and larger ones to the plain model forward. It runs
+on the card unless the caller passes ``device="cpu"``; with no card the
+default raises.
 """
 
 from __future__ import annotations
 
 import copy
 import warnings
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
 from .models.mixer_conv import ConvMixer
+from .models.mixer_mlp import MlpMixer
 
 
 def resolve_device(device) -> torch.device:
@@ -39,6 +42,28 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def model_io(model: nn.Module) -> Tuple[int, int, int]:
+    """(input frames, output frames, input dims) of a ConvMixer or an
+    MlpMixer."""
+    if isinstance(model, MlpMixer):
+        return model.seq_len, model.pred_len, model.input_size
+    return model.in_nTP, model.out_nTP, model.dimPosIn
+
+
+def _make_fused(model: nn.Module):
+    """The model's fused kernel; NotImplementedError where there is none
+    or the shape lies outside it."""
+    if isinstance(model, ConvMixer):
+        from .ops.conv_mixer import make_fused_conv_mixer
+
+        return make_fused_conv_mixer(model)
+    if isinstance(model, MlpMixer):
+        from .ops.mlp_mixer import make_fused_mlp_mixer
+
+        return make_fused_mlp_mixer(model)
+    raise NotImplementedError(f"no fused kernel for {type(model).__name__}")
+
+
 def as_tensor(x, device: torch.device) -> torch.Tensor:
     """(B, T, D) array or tensor -> contiguous float32 tensor on ``device``."""
     if not isinstance(x, torch.Tensor):
@@ -50,8 +75,8 @@ class Predictor:
     """Device-resident model server.
 
     Args:
-        model: a port ConvMixer ((B, input_n, D) -> (B, output_n, D)); the
-            predictor works on its own copy.
+        model: a port ConvMixer or MlpMixer ((B, input_n, D) -> (B,
+            output_n, D)); the predictor works on its own copy.
         state_dict: reference-layout weights, loaded with ``strict=True``;
             None keeps the model's own.
         device: where the model lives and predictions run ("cuda" default).
@@ -78,17 +103,10 @@ class Predictor:
         self._fused = None
         self.fused_fallback_reason: Optional[str] = None
         if use_fused:
-            if isinstance(self.model, ConvMixer):
-                from .ops.conv_mixer import make_fused_conv_mixer
-
-                try:
-                    self._fused = make_fused_conv_mixer(self.model)
-                except NotImplementedError as e:
-                    self.fused_fallback_reason = str(e)
-            else:
-                self.fused_fallback_reason = (
-                    f"no fused kernel for {type(self.model).__name__}")
-            if self.fused_fallback_reason is not None:
+            try:
+                self._fused = _make_fused(self.model)
+            except NotImplementedError as e:
+                self.fused_fallback_reason = str(e)
                 warnings.warn(
                     f"serving: fused kernel unavailable "
                     f"({self.fused_fallback_reason}); all batches use the "
@@ -107,9 +125,7 @@ class Predictor:
         clone.device = resolve_device(device)
         clone.model = copy.deepcopy(self.model).to(clone.device).eval()
         if self._fused is not None:
-            from .ops.conv_mixer import make_fused_conv_mixer
-
-            clone._fused = make_fused_conv_mixer(clone.model)
+            clone._fused = _make_fused(clone.model)
         return clone
 
     @classmethod
@@ -160,7 +176,7 @@ class Predictor:
         defaults to the model's output length."""
         from .train.autoregressive import autoregressive_rollout
 
-        in_n, out_n = self.model.in_nTP, self.model.out_nTP
+        in_n, out_n, _ = model_io(self.model)
         step = step_window or out_n
         n_steps = -(-horizon // step)  # ceil
         total = in_n + n_steps * step

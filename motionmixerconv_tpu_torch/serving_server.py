@@ -4,7 +4,7 @@ Counterpart of ``motionmixerconv_tpu/serving_server.py``. Concurrent client
 requests are coalesced by a batcher thread per device: requests queue up, a
 worker drains up to ``max_batch`` rows (waiting at most ``max_wait_ms`` for
 stragglers), pads them to a fixed bucket, runs ONE ``Predictor.predict``
-(the fused ConvMixer kernel at small batches, the plain forward above) and
+(the model's fused kernel at small batches, the plain forward above) and
 scatters the rows back to the waiting clients.
 
 Transport is a dependency-free ``ThreadingHTTPServer``:
@@ -15,8 +15,9 @@ Transport is a dependency-free ``ThreadingHTTPServer``:
 - ``GET  /stats``                   requests/batches/mean batch size/latency
 
 Run: ``python -m motionmixerconv_tpu_torch.serving_server --model_path m.pt``
-(a ``train_state.pt`` rebuilds its model from the stored training args; a
-bare state_dict takes the shape flags).
+(a ``train_state.pt`` rebuilds its model, ConvMixer or MlpMixer, from the
+stored training args; a bare state_dict takes the shape flags, with
+``--arch mlp`` for an MlpMixer).
 """
 
 from __future__ import annotations
@@ -353,8 +354,10 @@ class PredictionServer:
             predictor, max_batch=max_batch, max_wait_ms=max_wait_ms,
             devices=devices)
         if warmup:
-            m = predictor.model
-            self.batcher.warmup((m.in_nTP, m.dimPosIn))
+            from .serving import model_io
+
+            in_n, _, dim = model_io(predictor.model)
+            self.batcher.warmup((in_n, dim))
         self.httpd = ThreadingHTTPServer(
             (host, port), make_handler(self.batcher, predictor))
         self.port = self.httpd.server_address[1]
@@ -385,7 +388,7 @@ def build_parser():
                     help="auto rebuilds the architecture from a "
                          "train_state.pt's stored training args, falling "
                          "back to the flags below (conv) for a bare "
-                         "state_dict")
+                         "state_dict; mlp builds an MlpMixer from the flags")
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=8476)
     ap.add_argument("--max_batch", type=int, default=128)
@@ -394,7 +397,9 @@ def build_parser():
                     help="replicate serving across cuda:0..N-1 (each with its "
                          "own parameter copy, pulling from the shared "
                          "request queue); 0 = the current CUDA device")
-    # shape flags (reference CLI defaults: the flagship H36M ConvMixer)
+    # shape flags (reference CLI defaults: the flagship H36M ConvMixer;
+    # train_mixer_amass.py's MlpMixer takes --arch mlp --pose_dim 54
+    # --num_blocks 5 --hidden_dim 128 --activation gelu)
     ap.add_argument("--input_n", type=int, default=10)
     ap.add_argument("--output_n", type=int, default=25)
     ap.add_argument("--pose_dim", type=int, default=66)
@@ -411,11 +416,19 @@ def build_parser():
 
 
 def model_from_args(args) -> "torch.nn.Module":
-    """The ConvMixer the serving CLI builds from its shape flags."""
+    """The model the serving CLI builds from its shape flags: an MlpMixer
+    with ``--arch mlp`` (the AMASS trainer's regularization, SE r 8), a
+    ConvMixer otherwise."""
     if args.arch == "mlp":
-        raise NotImplementedError(
-            "MlpMixer serving lands with the AMASS/MlpMixer slice "
-            "(ROADMAP queue A item 11)")
+        from .models.mixer_mlp import MlpMixer
+
+        return MlpMixer(
+            num_classes=args.pose_dim, num_blocks=args.num_blocks,
+            hidden_dim=args.hidden_dim, tokens_mlp_dim=args.tokens_mlp_dim,
+            channels_mlp_dim=args.channels_mlp_dim, seq_len=args.input_n,
+            pred_len=args.output_n, activation=args.activation,
+            regularization=0.1, input_size=args.pose_dim, r_se=8,
+            use_se=True)
     from .models.mixer_conv import ConvMixer
 
     return ConvMixer(
@@ -469,7 +482,10 @@ def main(argv: Optional[list] = None) -> None:
                               max_batch=args.max_batch,
                               max_wait_ms=args.max_wait_ms, warmup=True,
                               devices=devices)
-    print(f"serving conv model on http://{args.host}:{server.port} "
+    from .models.mixer_mlp import MlpMixer
+
+    family = "mlp" if isinstance(predictor.model, MlpMixer) else "conv"
+    print(f"serving {family} model on http://{args.host}:{server.port} "
           f"(device={predictor.device_name}, max_batch={args.max_batch}, "
           f"buckets={server.batcher.buckets}"
           + (f", replicas={len(devices)}" if devices else "") + ")",

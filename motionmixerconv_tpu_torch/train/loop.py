@@ -211,6 +211,7 @@ class Trainer:
             "val": self._val_per_sample,
             "h36m_xyz": self._test_h36m_xyz_per_sample,
             "simple": self._test_simple_per_sample,
+            "amass22": self._test_amass22_per_sample,
         }[kind]
 
     def _forward_eval(self, frames, starts):
@@ -255,6 +256,17 @@ class Trainer:
             pred.reshape(b, self.output_n, -1, 3),
             seq_gt.reshape(b, self.output_n, -1, 3))
         return per_mpjpe, per_auc
+
+    def _test_amass22_per_sample(self, frames, starts):
+        """AMASS test MPJPE per sample, x1000 (train_mixer_amass.py:153-199,
+        JAX ``make_amass_test_fn``): the predicted joints are scattered into
+        the 22-joint ground truth (duplicated into both metric slots)."""
+        batch, pred, _ = self._forward_eval(frames, starts)
+        gt22 = batch[:, self.input_n: self.input_n + self.output_n, : 22 * 3]
+        all_seq = gt22.clone()
+        all_seq[:, :, self._dim_used] = pred
+        per = _per_sample_mpjpe(all_seq, gt22) * 1000.0
+        return per, per
 
     def validate(self, corpus: WindowedCorpus, frames: torch.Tensor,
                  batch_size: int) -> float:

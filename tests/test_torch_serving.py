@@ -226,12 +226,145 @@ def test_from_checkpoint_rebuilds_the_model_from_train_state(tmp_path):
 
 
 def test_model_from_checkpoint_meta_refuses_the_mlp_family():
+    """The MlpMixer family's metas rebuild (the test keeps the name it had
+    while they were refused): H36M
+    ``model_type mlp`` on 66 dims and AMASS (no model_type, no kernel
+    flags) on ``pose_dim``, with the stored widths."""
+    from motionmixerconv_tpu_torch.cli import train_mixer_amass, train_mixer_h36m
     from motionmixerconv_tpu_torch.cli._runner import model_from_checkpoint_meta
+    from motionmixerconv_tpu_torch.models import MlpMixer
 
-    with pytest.raises(NotImplementedError, match="item 11"):
-        model_from_checkpoint_meta({"model_type": "mlp", "num_blocks": 1})
-    with pytest.raises(NotImplementedError, match="item 11"):
-        model_from_checkpoint_meta({"tokens_mlp_dim": 20})  # AMASS: no flag
+    h36m = vars(train_mixer_h36m.parse_args(
+        ["--loss_type", "mpjpe", "--model_type", "mlp", "--num_blocks", "1",
+         "--hidden_dim", "12"]))
+    model = model_from_checkpoint_meta(h36m)
+    assert isinstance(model, MlpMixer)
+    assert (model.input_size, model.num_classes, model.hidden_dim,
+            model.num_blocks, model.channels_mlp_dim, model.activation) == (
+        66, 66, 12, 1, 50, "mish")
+    amass = vars(train_mixer_amass.parse_args(["--hidden_dim", "16"]))
+    model = model_from_checkpoint_meta(amass)
+    assert isinstance(model, MlpMixer)
+    assert (model.input_size, model.seq_len, model.pred_len, model.hidden_dim,
+            model.num_blocks, model.r_se, model.use_se) == (
+        54, 10, 25, 16, 5, 8, True)
+
+
+# an MlpMixer at a small width, as build_mlp_mixer makes it (SE on, r 8)
+MLP_SMALL = dict(num_classes=54, num_blocks=2, hidden_dim=16,
+                 tokens_mlp_dim=8, channels_mlp_dim=24, seq_len=10,
+                 pred_len=25, activation="gelu", regularization=0.1,
+                 input_size=54, r_se=8, use_se=True)
+
+
+def _mlp_both(cfg, seed=0):
+    from motionmixerconv_tpu.models import MlpMixer as JaxMlpMixer
+
+    jmodel = JaxMlpMixer(**cfg)
+    variables = jax.tree_util.tree_map(np.asarray, jmodel.init(
+        jax.random.PRNGKey(seed), jnp.zeros((1, cfg["seq_len"],
+                                             cfg["input_size"])),
+        training=False))
+    return jmodel, variables, state_dict_from_jax(variables,
+                                                  cfg["num_blocks"])
+
+
+def test_predict_routes_mlp_mixer_to_b4_and_matches_jax():
+    """An MlpMixer goes through the B4 wrapper (its plain version on the
+    CPU) at B <= fused_max_batch and the plain forward above, both against
+    the JAX Predictor (which runs the flax forward off the TPU): 2e-4 on
+    the fused path (the Pallas kernel's test tolerance), 2e-5 on the plain
+    forward; predict_autoregressive too."""
+    from motionmixerconv_tpu_torch.models import MlpMixer
+    from motionmixerconv_tpu_torch.ops import mlp_mixer
+
+    jmodel, variables, sd = _mlp_both(MLP_SMALL)
+    jp = JaxPredictor(jmodel, variables)
+    p = Predictor(MlpMixer(**MLP_SMALL), sd, device="cpu", fused_max_batch=4)
+    assert type(p._fused).__name__ == "FusedMlpMixer"
+    assert p.fused_fallback_reason is None
+    rs = np.random.RandomState(3)
+    small = (rs.randn(3, 10, 54) * 0.5).astype(np.float32)
+    big = (rs.randn(6, 10, 54) * 0.5).astype(np.float32)
+    before = mlp_mixer.PLAIN_CALLS.value
+    np.testing.assert_allclose(p.predict(small).numpy(),
+                               np.asarray(jp.predict(small)), atol=2e-4)
+    assert mlp_mixer.PLAIN_CALLS.value == before + 1
+    np.testing.assert_allclose(p.predict(big).numpy(),
+                               np.asarray(jp.predict(big)), atol=2e-5)
+    assert mlp_mixer.PLAIN_CALLS.value == before + 1
+    want = np.asarray(jp.predict_autoregressive(small, horizon=20))
+    got = p.predict_autoregressive(small, horizon=20).numpy()
+    assert got.shape == want.shape == (3, 20, 54)
+    np.testing.assert_allclose(got, want, atol=2e-5)
+    q = p.replicate_to("cpu")
+    assert type(q._fused).__name__ == "FusedMlpMixer" and q._fused is not p._fused
+    torch.testing.assert_close(q.predict(small), p.predict(small), rtol=0,
+                               atol=0)
+
+
+def test_mlp_mixer_outside_b4_falls_back_with_a_warning(monkeypatch):
+    from motionmixerconv_tpu_torch.models import MlpMixer
+    from motionmixerconv_tpu_torch.ops import mlp_mixer
+
+    monkeypatch.setattr(mlp_mixer, "_INT_MAX", 1000)
+    with pytest.warns(UserWarning, match="fused kernel unavailable"):
+        p = Predictor(MlpMixer(**MLP_SMALL), device="cpu")
+    assert p._fused is None and "32-bit" in p.fused_fallback_reason
+    before = mlp_mixer.PLAIN_CALLS.value
+    assert p.predict(np.zeros((2, 10, 54), np.float32)).shape == (2, 25, 54)
+    assert mlp_mixer.PLAIN_CALLS.value == before
+
+
+def test_serving_cli_serves_the_mlp_mixer(tmp_path):
+    """``--arch mlp`` builds the MlpMixer from the shape flags for a bare
+    state_dict; ``--arch auto`` rebuilds an AMASS train_state.pt; the
+    server warms up with the MlpMixer's input shape and answers /predict
+    with what the model computes."""
+    from motionmixerconv_tpu_torch.cli import train_mixer_amass
+    from motionmixerconv_tpu_torch.cli._runner import build_mlp_mixer
+    from motionmixerconv_tpu_torch.models import MlpMixer
+    from motionmixerconv_tpu_torch.ops import mlp_mixer
+    from motionmixerconv_tpu_torch.train import make_optimizer, save_checkpoint
+
+    parse = serving_server.build_parser().parse_args
+    bare = str(tmp_path / "m.pt")
+    model = MlpMixer(**dict(MLP_SMALL, activation="mish"),
+                     generator=torch.Generator().manual_seed(0)).eval()
+    torch.save(model.state_dict(), bare)
+    p = serving_server.load_predictor(parse(
+        ["--model_path", bare, "--arch", "mlp", "--pose_dim", "54",
+         "--num_blocks", "2", "--hidden_dim", "16", "--tokens_mlp_dim", "8",
+         "--channels_mlp_dim", "24"]), "cpu")
+    assert type(p._fused).__name__ == "FusedMlpMixer"
+    x = (np.random.RandomState(4).randn(3, 10, 54) * 0.5).astype(np.float32)
+    with torch.no_grad():
+        torch.testing.assert_close(p.predict(x), model(torch.from_numpy(x)),
+                                   rtol=0, atol=2e-5)
+
+    args = train_mixer_amass.parse_args(["--num_blocks", "1", "--hidden_dim",
+                                         "12", "--channels_mlp_dim", "12"])
+    trained = build_mlp_mixer(args, 54, 10, 25,
+                              generator=torch.Generator().manual_seed(1))
+    path = str(tmp_path / "train_state.pt")
+    save_checkpoint(path, trained,
+                    make_optimizer(trained.parameters(), lr=1e-3), 0,
+                    meta=vars(args))
+    p = serving_server.load_predictor(parse(["--model_path", path]), "cpu")
+    assert isinstance(p.model, MlpMixer) and p.model.hidden_dim == 12
+    before = mlp_mixer.PLAIN_CALLS.value
+    server = PredictionServer(p, port=0, max_wait_ms=1.0, warmup=True)
+    server.start_background()
+    try:  # warmed up: every bucket once through B4 (plain on the CPU)
+        assert mlp_mixer.PLAIN_CALLS.value == before + len(
+            server.batcher.buckets)
+        out = _post(f"http://127.0.0.1:{server.port}", "/predict",
+                    {"inputs": x.tolist()})["outputs"]
+    finally:
+        server.close()
+    with torch.no_grad():
+        want = trained.eval()(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(np.asarray(out, np.float32), want, atol=2e-5)
 
 
 def test_serving_cli_arch_auto_rebuilds_from_train_state(tmp_path, monkeypatch):

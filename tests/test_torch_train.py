@@ -303,7 +303,6 @@ def test_cli_defaults_to_the_card(h36m_dir, tmp_path):
 
 @pytest.mark.parametrize("flags,item", [
     (("--loss_type", "angle"), "item 9"),
-    (("--model_type", "mlp"), "item 11"),
     (("--visualize",), "item 16"),
     (("--epochs_per_dispatch", "2"), "item 19"),
     (("--embed_dtype", "bf16"), "item 19"),
@@ -313,3 +312,23 @@ def test_cli_refuses_unported_flags(tmp_path, flags, item):
             "--loss_type", "mpjpe", "--dev", "cpu", *flags]
     with pytest.raises(NotImplementedError, match=item):
         cli.main(argv)
+
+
+def test_cli_trains_the_mlp_mixer(h36m_dir, tmp_path):
+    """``--model_type mlp`` trains an MlpMixer on the 66 H36M dims for one
+    epoch (JAX train_mixer_h36m.py:126-127 builds it the same way), with
+    finite metrics, and its train_state.pt rebuilds that MlpMixer."""
+    from motionmixerconv_tpu_torch.models import MlpMixer
+
+    save = str(tmp_path / "mlp")
+    hist = cli.main(_argv(h36m_dir, save, "--n_epochs", "1", "--dev", "cpu",
+                          "--model_type", "mlp", "--channels_mlp_dim", "16"))
+    values = [hist["train"][0], hist["val"][0], hist["test"][0],
+              hist["metrics"]["auc_pck"][0]]
+    assert all(np.isfinite(v) for v in values), values
+    path = os.path.join(save, "h36_3d_25frames_ckpt", "train_state.pt")
+    p = Predictor.from_checkpoint(None, path, device="cpu")
+    assert isinstance(p.model, MlpMixer)
+    assert (p.model.input_size, p.model.hidden_dim, p.model.num_blocks,
+            p.model.channels_mlp_dim) == (66, 16, 2, 16)
+    assert type(p._fused).__name__ == "FusedMlpMixer"

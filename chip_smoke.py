@@ -5,30 +5,34 @@ against their plain PyTorch versions.
     python3 chip_smoke.py
 
 Phases, one line each: [1] device and settings, [2] kernel build from
-``motionmixerconv_tpu_torch/csrc``, [3] the fused ConvMixer core (B2) against
-its plain version, [4] the harmonic encoder forward (B1) against its plain
-version, [5] the flagship H36M ConvMixer served end to end over HTTP (launch
-counts reset just before and read just after), [6] serving times, [7] the
-harmonic encoder backward (B1-bwd) against its plain version, twice for
-bit-identity, [8] one flagship training step with the fused encoder against
-the plain one, [9] the training CLI (``--loss_type mpjpe --fused_encoder``,
-2 epochs at the defaults) on a synthetic H36M corpus, its checkpoint served
-through B2 (launch counts reset just before and read just after), [10]
-training times, [11] the multi-channel ConvMixer core (B3) against its
-plain version at the autoregressive and study shapes, twice for
-bit-identity, [12] the autoregressive training CLI (``--loss_type mpjpe``,
-one teacher-forcing and one closed-loop epoch at the default widths), its
-``train_state.pt`` rebuilt and served through B3 in process and over HTTP
-(launch counts reset just before and read just after), [13]
-autoregressive training times, [14] the fused MlpMixer forward (B4) against
-its plain version at the AMASS default, a BatchNorm + max-pool, a
-channel-only, a token-only, a long-window (activations in device scratch)
-and a wide shape (weights read in place), twice for bit-identity, [15] the AMASS training CLI (2 epochs at its default widths on
-a synthetic corpus), its ``train_state.pt`` served through B4 in process and
-over HTTP with ``--arch auto`` (launch counts reset just before the CLI and
-read just after the serving), [16] B4, serving and AMASS training times.
-Then one JSON line with every kernel's numbers, the card's name and power
-limit, and the result line. Any failure exits non-zero; with
+``motionmixerconv_tpu_torch/csrc``, [3] the fused ConvMixer core (B2)
+against its plain version, [4] the harmonic encoder forward (B1) against its
+plain version at 500, 1280 and 2560 rows, twice for bit-identity, with the
+wrapper's launch plans checked against the library, [5] the flagship H36M
+ConvMixer served end to end over HTTP (launch counts reset just before and
+read just after), [6] serving times, [7] the harmonic encoder backward
+(B1-bwd) against its plain version, twice for bit-identity, [8] one flagship
+training step with the fused encoder against the plain one, [9] the training
+CLI (``--loss_type mpjpe --fused_encoder``, 2 epochs at the defaults) on a
+synthetic H36M corpus, its checkpoint served through B2 (launch counts reset
+just before and read just after), [10] training times, B1-fwd and B1-bwd
+times at 500 and 2560 rows with the profiler's device time of each of their
+kernels and cuBLAS's f32 products on a precomputed embedding as yardsticks,
+[11] the multi-channel ConvMixer core (B3) against its plain version at the
+autoregressive and study shapes, twice for bit-identity, [12] the
+autoregressive training CLI (``--loss_type mpjpe``, one teacher-forcing and
+one closed-loop epoch at the default widths), its ``train_state.pt`` rebuilt
+and served through B3 in process and over HTTP (launch counts reset just
+before and read just after), [13] autoregressive training times, [14] the
+fused MlpMixer forward (B4) against its plain version at the AMASS default,
+a BatchNorm + max-pool, a channel-only, a token-only, a long-window
+(activations in device scratch) and a wide shape (weights read in place),
+twice for bit-identity, [15] the AMASS training CLI (2 epochs at its default
+widths on a synthetic corpus), its ``train_state.pt`` served through B4 in
+process and over HTTP with ``--arch auto`` (launch counts reset just before
+the CLI and read just after the serving), [16] B4, serving and AMASS
+training times. Then one JSON line with every kernel's numbers, the card's
+name and power limit, and the result line. Any failure exits non-zero; with
 no CUDA device, or with the port's package missing beside this script, it
 exits at once and prints no result.
 """
@@ -62,6 +66,15 @@ TOL_B1_BWD = 1e-5
 TOL_STEP = 1e-4
 STEP_FLOOR = 1e-2
 B1_BWD_ROWS = (500, 2560)  # a train step at batch 50; the 256-row bulk batch
+B1_FWD_ROWS = (500, 1280, 2560)
+B1_SHAPE = (66, 64, 50)  # the flagship encoder's D, n, E
+# the kernels of a B1 call, by the names the profiler shows: the forward's
+# main kernel and the sum of its harmonic groups; dW, its finishing sum (and
+# db), dx and the sum of dx's groups
+B1_FWD_KERNELS = ("harmonic_dense_fwd_kernel", "harmonic_dense_sum_kernel")
+B1_BWD_KERNELS = ("harmonic_dense_bwd_dw_kernel",
+                  "harmonic_dense_bwd_finish_kernel",
+                  "harmonic_dense_bwd_dx_kernel", "harmonic_dense_sum_kernel")
 TRAIN_BATCH = 50
 CORPUS_FRAMES = 400  # frames per synthetic H36M sequence (~24,900 train windows)
 TRAIN_ARGV = ["--loss_type", "mpjpe"]  # the training CLI at its defaults
@@ -408,6 +421,45 @@ def b1_bwd_work(rows: int, d: int, n: int, e: int, impl: str, with_dx: bool):
     return nbytes, ops
 
 
+def check_b1_plans(lib, harmonic, torch) -> str:
+    """Fail unless the library's B1 tiles and shared memory agree with the
+    wrapper's launch plans (``ops/harmonic.py``) at the flagship shape and
+    the rows phases 4, 7 and 10 use, and unless as many blocks fit an SM as
+    the plans count on; returns the plans in brief."""
+    d, n, e = B1_SHAPE
+    consts = {"fwd_rows": harmonic.FWD_ROWS,
+              "fwd_max_cols": harmonic.FWD_MAX_COLS,
+              "dw_rows": harmonic.DW_ROWS,
+              "dx_rows": harmonic.DX_ROWS}
+    for k, v in consts.items():
+        if getattr(lib, f"mmc_harmonic_{k}")() != v:
+            fail(f"B1: the library's {k} is not the wrapper's {v}")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = []
+    for rows in sorted({*B1_FWD_ROWS, *B1_BWD_ROWS}):
+        fp = harmonic.fwd_plan(rows, d, e, n, sms)
+        bp = harmonic.bwd_plan(rows, d, e, n, True, sms)
+        resident = (lib.mmc_harmonic_resident_blocks(0, fp.threads, fp.smem),
+                    lib.mmc_harmonic_resident_blocks(1, bp.threads, bp.smem))
+        if resident[0] < fp.blocks_per_sm or resident[1] < bp.blocks_per_sm:
+            fail(f"B1 R={rows}: {resident} blocks fit an SM, the plans count "
+                 f"on {(fp.blocks_per_sm, bp.blocks_per_sm)}")
+        if (lib.mmc_harmonic_fwd_smem_bytes(d, fp.cols),
+                lib.mmc_harmonic_dw_smem_bytes(d, bp.cols),
+                lib.mmc_harmonic_finish_smem_bytes(e, n),
+                lib.mmc_harmonic_dx_smem_bytes(d, e, bp.dx_ld)) != (
+                fp.smem, bp.smem, bp.finish_smem, bp.dx_smem):
+            fail(f"B1 R={rows}: the library's shared memory disagrees with "
+                 "ops/harmonic.py's plans")
+        out.append(f"R={rows} fwd {fp.blocks} blocks ({fp.groups} groups of "
+                   f"{fp.hg}) x {fp.threads} thr, dW {bp.blocks} blocks "
+                   f"({bp.chunks} chunks of {bp.chunk_rows} rows) x "
+                   f"{bp.threads} thr, dx {bp.dx_blocks} blocks "
+                   f"({bp.dx_groups} groups of {bp.dx_hg}); resident per SM "
+                   f"fwd {resident[0]}, dW {resident[1]}")
+    return f"{sms} SMs; " + " ; ".join(out)
+
+
 def bound(nbytes: int, ops: int):
     t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -494,7 +546,11 @@ def main() -> None:
     if not b2_err <= TOL_B2:
         fail(f"B2 disagrees with its plain version: {b2_err:.3e} > {TOL_B2:g}")
 
-    # [4] B1 forward against its plain version, R = 1280 and the bulk 2560
+    # [4] B1 forward against its plain version at the training step's rows,
+    # 1280 and the bulk 2560 rows, twice for bit-identity (the groups'
+    # partial sums are added in a fixed order); the wrapper's launch plans
+    # against the library's tiles and shared memory
+    plans = check_b1_plans(_build.load_library(), harmonic, torch)
     enc = flag.encoder
     w, bias, freqs = enc.embed_mlp.weight.detach(), enc.embed_mlp.bias.detach(), \
         enc.frequencies
@@ -502,19 +558,23 @@ def main() -> None:
     b1_err = 0.0
     parts = []
     with torch.no_grad():
-        for impl in ("direct", "doubling"):
-            for rows in (1280, BULK_ROWS * 10):
+        for impl in harmonic.IMPLS:
+            for rows in B1_FWD_ROWS:
                 x2d = x_all.reshape(-1, 66)[:rows].contiguous()
                 got = harmonic.harmonic_dense_fwd(x2d, w, bias, freqs, impl, wi)
+                again = harmonic.harmonic_dense_fwd(x2d, w, bias, freqs, impl, wi)
                 want = harmonic.harmonic_dense_plain(x2d, w, bias, freqs, impl)
                 torch.cuda.synchronize()
                 if not torch.isfinite(got).all():
                     fail(f"B1 {impl} R={rows}: non-finite output")
+                if not torch.equal(got, again):
+                    fail(f"B1 {impl} R={rows}: two launches differ")
                 err = float((got - want).abs().max())
                 b1_err = max(b1_err, err)
                 parts.append(f"{impl} R={rows} {err:.3e}")
     say(f"[4 B1 harmonic_dense_fwd vs plain] max_abs_err {b1_err:.3e} "
-        f"(tol {TOL_B1:g}) | " + " ; ".join(parts))
+        f"(tol {TOL_B1:g}); second launch bit-identical | " + " ; ".join(parts)
+        + f" | launch plans (library agrees): {plans}")
     if not b1_err <= TOL_B1:
         fail(f"B1 disagrees with its plain version: {b1_err:.3e} > {TOL_B1:g}")
 
@@ -618,10 +678,10 @@ def main() -> None:
         dev_us = {
             "B2 B=128": device_us(torch, lambda: conv_mixer.conv_mixer_fused(
                 y, wts, spec), "conv_mixer_fused_kernel"),
-            **{f"B1 {i} R={rows}": device_us(
+            **{f"B1 {i} R={rows} {k}": device_us(
                 torch, lambda: harmonic.harmonic_dense_fwd(x2d, w, bias, freqs, i, wi),
-                "harmonic_dense_fwd_kernel", reps=5)
-               for i in ("direct", "doubling")},
+                k, reps=5)
+               for i in harmonic.IMPLS for k in B1_FWD_KERNELS},
         }
     nb2, ob2 = b2_work(spec, 128, wts.numel())
     bound_b2, by_b2 = bound(nb2, ob2)
@@ -810,11 +870,18 @@ def main() -> None:
                     "samples_per_s": [n_train / t for t in h["train_s"]],
                     "step_ms": [t / steps_per_epoch * 1e3 for t in h["train_s"]],
                     "run_s": runs[tag][1]}
-    bwd_t = {}
+    # B1 at the training step's rows and the bulk rows; the yardsticks are
+    # cuBLAS's f32 products alone on a precomputed embedding (no trig)
+    from motionmixerconv_tpu_torch.models.encoding import harmonic_features
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("TF32 is on: the cuBLAS yardsticks would not be float32")
+    bwd_t, fwd_t, b1_dev = {}, {}, {}
     with torch.no_grad():
         for rows in B1_BWD_ROWS:
             x2d = x_all.reshape(-1, 66)[:rows].contiguous()
             gr = g_all[:rows].contiguous()
+            feats = harmonic_features(x2d, 64, float(freqs[0]), "direct", freqs)
             for dx_on in (False, True):
                 bwd_t[(rows, dx_on)] = (
                     cuda_ms(torch, lambda: harmonic.harmonic_dense_bwd(
@@ -826,18 +893,25 @@ def main() -> None:
             bwd_t[(rows, "doubling")] = cuda_ms(
                 torch, lambda: harmonic.harmonic_dense_bwd(
                     x2d, gr, w, freqs, "doubling", wi, need_dx=False), reps=10)
+            fwd_t[rows] = {
+                "ms": cuda_ms(torch, lambda: harmonic.harmonic_dense_fwd(
+                    x2d, w, bias, freqs, "direct", wi), reps=10),
+                "plain_ms": cuda_ms(torch, lambda: harmonic.harmonic_dense_plain(
+                    x2d, w, bias, freqs, "direct"), reps=10),
+                "bound": bound(*b1_work(rows, 66, 64, 50, "direct")),
+                "library_ms": cuda_ms(
+                    torch, lambda: torch.nn.functional.linear(feats, w, bias),
+                    reps=10),
+                "dw_library_ms": cuda_ms(torch, lambda: gr.t() @ feats, reps=10)}
+            for k in B1_FWD_KERNELS:
+                b1_dev[f"fwd R={rows} {k}"] = device_us(
+                    torch, lambda: harmonic.harmonic_dense_fwd(
+                        x2d, w, bias, freqs, "direct", wi), k, reps=5)
+            for k in B1_BWD_KERNELS:
+                b1_dev[f"bwd+dx R={rows} {k}"] = device_us(
+                    torch, lambda: harmonic.harmonic_dense_bwd(
+                        x2d, gr, w, freqs, "direct", wi, need_dx=True), k, reps=5)
         r0 = B1_BWD_ROWS[0]  # the training step's rows
-        x_r0 = x_all.reshape(-1, 66)[:r0].contiguous()
-        g_r0 = g_all[:r0].contiguous()
-        bwd_dev = {
-            f"{name} R={r0}": device_us(
-                torch, lambda: harmonic.harmonic_dense_bwd(
-                    x_r0, g_r0, w, freqs, "direct", wi, need_dx=True),
-                kern, reps=5)
-            for name, kern in (("dW+db", "harmonic_dense_bwd_dw_kernel"),
-                               ("dx", "harmonic_dense_bwd_dx_kernel"))}
-        fwd_r0 = cuda_ms(torch, lambda: harmonic.harmonic_dense_fwd(
-            x_r0, w, bias, freqs, "direct", wi), reps=10)
     from motionmixerconv_tpu_torch.data.constants import H36M_DIM_USED_XYZ
     from motionmixerconv_tpu_torch.train import Trainer, make_optimizer
 
@@ -864,10 +938,16 @@ def main() -> None:
         + " | B1-bwd doubling dW+db kernel ms: "
         + " ; ".join(f"R={r} {v:.4f}" for (r, d), v in bwd_t.items()
                      if d == "doubling")
+        + " | B1-fwd direct kernel/plain ms (bound ms, by): " + " ; ".join(
+            f"R={r} {t['ms']:.4f}/{t['plain_ms']:.4f} ({t['bound'][0]:.5f}, "
+            f"{t['bound'][1]})" for r, t in fwd_t.items())
+        + " | cuBLAS f32 yardsticks on a precomputed embedding (no trig) ms: "
+        + " ; ".join(f"R={r} F.linear(embed, W, b) {t['library_ms']:.4f}, "
+                     f"g.t() @ embed {t['dw_library_ms']:.4f}"
+                     for r, t in fwd_t.items())
         + " | profiler device us/launch: " + " ; ".join(
             f"{k} {'not measured' if v is None else f'{v:.2f}'}"
-            for k, v in bwd_dev.items())
-        + f" | B1-fwd direct R={r0} kernel ms {fwd_r0:.4f}"
+            for k, v in b1_dev.items())
         + f" | profiled train steps (fused, batch {TRAIN_BATCH}): {step_prof}")
 
     # [11] B3 against its plain version: the autoregressive default (warmed
@@ -1206,7 +1286,16 @@ def main() -> None:
          "replaces": "motionmixerconv_tpu/ops/pallas_harmonic.py:54",
          "launches": launches["harmonic_dense_fwd"], "max_abs_err": b1_err,
          "ms": b1["direct"][0], "plain_ms": b1["direct"][1], "bound_ms": bound_b1,
-         "bound_by": by_b1, "library_ms": None},
+         "bound_by": by_b1, "library_ms": fwd_t[BULK_ROWS * 10]["library_ms"],
+         "library_note": "F.linear(embed, W, b), cuBLAS f32, on a precomputed "
+                         "embedding: the contraction without the trig",
+         "rows": BULK_ROWS * 10,
+         "by_rows": {str(r): {"ms": t["ms"], "plain_ms": t["plain_ms"],
+                              "bound_ms": t["bound"][0],
+                              "library_ms": t["library_ms"],
+                              "device_us": {k: b1_dev[f"fwd R={r} {k}"]
+                                            for k in B1_FWD_KERNELS}}
+                     for r, t in fwd_t.items()}},
         {"name": "harmonic_dense_bwd", "route": "cuda",
          "source": "motionmixerconv_tpu_torch/csrc/harmonic_dense.cu",
          "replaces": "motionmixerconv_tpu/ops/pallas_harmonic.py:104",
@@ -1215,11 +1304,22 @@ def main() -> None:
          "dx_err_over_max": bwd_err["dx_rel"],
          "ms": bwd_t[(r0, False)][0], "plain_ms": bwd_t[(r0, False)][1],
          "bound_ms": bwd_t[(r0, False)][2][0],
-         "bound_by": bwd_t[(r0, False)][2][1], "library_ms": None,
+         "bound_by": bwd_t[(r0, False)][2][1],
+         "library_ms": fwd_t[r0]["dw_library_ms"],
+         "library_note": "g.t() @ embed, cuBLAS f32, on a precomputed "
+                         "embedding: dW's contraction without the trig or db",
          "rows": r0,
          "with_dx": {"ms": bwd_t[(r0, True)][0],
                      "plain_ms": bwd_t[(r0, True)][1],
-                     "bound_ms": bwd_t[(r0, True)][2][0]}},
+                     "bound_ms": bwd_t[(r0, True)][2][0]},
+         "by_rows": {str(r): {"ms": bwd_t[(r, False)][0],
+                              "plain_ms": bwd_t[(r, False)][1],
+                              "bound_ms": bwd_t[(r, False)][2][0],
+                              "library_ms": fwd_t[r]["dw_library_ms"],
+                              "with_dx_ms": bwd_t[(r, True)][0],
+                              "device_us": {k: b1_dev[f"bwd+dx R={r} {k}"]
+                                            for k in B1_BWD_KERNELS}}
+                     for r in B1_BWD_ROWS}},
         {"name": "conv_mixer_mc", "route": "cuda",
          "source": "motionmixerconv_tpu_torch/csrc/conv_mixer_mc.cu",
          "replaces": "motionmixerconv_tpu/ops/pallas_conv_mixer.py:465",

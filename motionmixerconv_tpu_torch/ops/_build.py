@@ -113,17 +113,17 @@ def _declare(lib) -> None:
     lib.mmc_conv_mixer_mc.restype = i
     lib.mmc_mlp_mixer.argtypes = [p] * 4 + [i] * 18 + [p]
     lib.mmc_mlp_mixer.restype = i
-    lib.mmc_harmonic_max_outputs_per_tile.argtypes = []
-    lib.mmc_harmonic_max_outputs_per_tile.restype = i
-    lib.mmc_harmonic_smem_bytes.argtypes = [i, i, i]
-    lib.mmc_harmonic_smem_bytes.restype = L
-    lib.mmc_harmonic_dense_fwd.argtypes = [p] * 5 + [i] * 6 + [p]
+    for name in ("fwd_rows", "fwd_max_cols", "dw_rows", "dx_rows"):
+        getattr(lib, f"mmc_harmonic_{name}").argtypes = []
+        getattr(lib, f"mmc_harmonic_{name}").restype = i
+    for name, n_args in (("fwd", 2), ("dw", 2), ("finish", 2), ("dx", 3)):
+        getattr(lib, f"mmc_harmonic_{name}_smem_bytes").argtypes = [i] * n_args
+        getattr(lib, f"mmc_harmonic_{name}_smem_bytes").restype = L
+    lib.mmc_harmonic_resident_blocks.argtypes = [i, i, L]
+    lib.mmc_harmonic_resident_blocks.restype = i
+    lib.mmc_harmonic_dense_fwd.argtypes = [p] * 6 + [i] * 8 + [p]
     lib.mmc_harmonic_dense_fwd.restype = i
-    lib.mmc_harmonic_bwd_max_slab_outputs.argtypes = []
-    lib.mmc_harmonic_bwd_max_slab_outputs.restype = i
-    lib.mmc_harmonic_bwd_smem_bytes.argtypes = [i, i, i]
-    lib.mmc_harmonic_bwd_smem_bytes.restype = L
-    lib.mmc_harmonic_dense_bwd.argtypes = [p] * 7 + [i] * 6 + [p]
+    lib.mmc_harmonic_dense_bwd.argtypes = [p] * 8 + [i] * 11 + [p]
     lib.mmc_harmonic_dense_bwd.restype = i
 
 

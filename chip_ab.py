@@ -1,21 +1,28 @@
 #!/usr/bin/env python3
-"""Time the harmonic encoder kernels (B1-fwd and B1-bwd) of this checkout
-against those of another checkout of the repository, in turns on one card.
+"""Time the port's kernels of this checkout against those of another
+checkout of the repository, in turns on one card.
 
     python3 chip_ab.py --other path/to/other/checkout [--reps 20]
+        [--kernels B1,B3,B4] [--step-seeds 4,11,12] [--b3-plans]
 
 Both trees' ``motionmixerconv_tpu_torch`` are imported side by side (the
 other one under the package name ``mmc_other``); each builds its kernels
-from its own ``csrc/`` into its own ``build/``. For every case, at the
-flagship encoder's shape (D = 66, n = 64, E = 50, random weights from a
-seed), the script checks this tree's kernel against the plain version
-(``chip_smoke.py``'s tolerances) and against the other tree's kernel, then
+from its own ``csrc/`` into its own ``build/``. The cases: the harmonic
+encoder kernels B1-fwd and B1-bwd at the flagship encoder's shape (D = 66,
+n = 64, E = 50); the multi-channel ConvMixer core B3 at B = 1 and 128 for
+the autoregressive and the study shape; the fused MlpMixer B4 at B = 1, 32
+and 128 for the AMASS shape (random weights and inputs from a seed; each
+tree packs the same model). For every case the script checks this tree's
+kernel against the plain version (``chip_smoke.py``'s tolerances, and a
+second launch bit-identical) and against the other tree's kernel, then
 times by CUDA events other, this, this, other on the same inputs, and the
-plain version once. With ``--step-seeds``, it also replays ``chip_smoke.py``
-phase 8 (one flagship training step, fused encoder against plain) for each
-seed with both trees' fused encoders and prints each one's worst gradient
-difference. It prints the card's name and power limit and one JSON line
-with every result; it exits non-zero if a check fails or there is no card.
+plain version once. With ``--step-seeds``, it also replays
+``chip_smoke.py`` phase 8 (``step_check``: one flagship training step of
+the plain model and of both trees' fused encoders, each float32 gradient
+held to a float64 step) for each seed. With ``--b3-plans``, it times this
+tree's B3 under every cluster size and stencil tile the shapes allow. It
+prints the card's name and power limit and one JSON line with every
+result; it exits non-zero if a check fails or there is no card.
 """
 
 from __future__ import annotations
@@ -39,6 +46,11 @@ BWD_CASES = [("direct", 500, False), ("direct", 2560, False),
              ("doubling", 500, False)]
 
 
+B3_CASES = [("autoregressive", 1), ("autoregressive", 128), ("study", 1),
+            ("study", 128)]
+B4_BATCHES = (1, 32, 128)
+
+
 def load_other(path: Path):
     """The other checkout's port package, imported as ``mmc_other``."""
     pkg_dir = path.resolve() / "motionmixerconv_tpu_torch"
@@ -48,71 +60,46 @@ def load_other(path: Path):
     mod = importlib.util.module_from_spec(spec)
     sys.modules["mmc_other"] = mod
     spec.loader.exec_module(mod)
-    return importlib.import_module("mmc_other.ops.harmonic")
-
-
-def step_grads(torch, model, seq):
-    """The gradients of one phase-8 training step of ``model`` on ``seq``."""
-    pred = model(seq[:, :10] * 1e-3)
-    diff = (seq[:, 10:] - pred).reshape(seq.shape[0], -1, 3)
-    torch.linalg.norm(diff, dim=-1).mean().backward()
-    return {k: p.grad for k, p in model.named_parameters()}
+    return mod
 
 
 def replay_step(torch, dev, seeds, fused_models):
-    """Phase 8 of chip_smoke.py for each seed: every fused model of
-    ``fused_models`` (name -> ConvMixer class) against the plain one; the
-    worst gradient difference relative to max(its gradient's max,
-    STEP_FLOOR x the tree's largest), and the parameter it is at."""
-    from motionmixerconv_tpu_torch.models import ConvMixer
-
-    cfg = dict(chip_smoke.FLAGSHIP, regularization=0.0)  # dropout off
+    """Phase 8 of chip_smoke.py for each seed (model seed, data seed + 1):
+    the plain float32 step and every fused model of ``fused_models`` (name
+    -> ConvMixer class), each held to the float64 step; per run the loss,
+    the worst gradient against TOL_STEP and each ROUNDING_FLOOR gradient
+    against its rounding bound, and whether every one is within."""
     out = []
     for seed in seeds:
-        plain = ConvMixer(**cfg, generator=torch.Generator().manual_seed(seed))
-        state = plain.state_dict()
-        gs = torch.Generator().manual_seed(seed + 1)
-        seq = (torch.randn(chip_smoke.TRAIN_BATCH, 35, 66, generator=gs)
-               * 300.0).to(dev)
-        gp = step_grads(torch, plain.to(dev).train(), seq)
-        tree_max = max(float(g.abs().max()) for g in gp.values())
-        row = {"seed": seed}
-        for name, cls in fused_models.items():
-            fused = cls(**cfg, encoder_fused=True)
-            fused.load_state_dict(state, strict=True)
-            gf = step_grads(torch, fused.to(dev).train(), seq)
-            rel = {k: float((gf[k] - g).abs().max()) / max(
-                float(g.abs().max()), chip_smoke.STEP_FLOOR * tree_max)
-                for k, g in gp.items()}
-            worst = max(rel, key=rel.get)
-            row[name] = {"worst": worst, "rel": rel[worst]}
+        res = chip_smoke.step_check(torch, dev, seed, seed + 1, fused_models)
+        row = {"seed": seed, "loss_float64": res["float64"][0]}
+        for name in ("plain", *fused_models):
+            loss, _, checks = res[name]
+            floor = {k: checks[k][0] for k in chip_smoke.ROUNDING_FLOOR}
+            rest = {k: v[0] for k, v in checks.items() if k not in floor}
+            worst = max(rest, key=rest.get)
+            row[name] = {"loss": loss, "worst": worst, "rel": rest[worst],
+                         "rounding_floor": floor,
+                         "ok": all(e <= t for e, t in checks.values())}
         out.append(row)
         chip_smoke.say(json.dumps(row))
     return out
 
 
-def main() -> None:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--other", required=True, type=Path)
-    ap.add_argument("--reps", type=int, default=20)
-    ap.add_argument("--step-seeds", default="",
-                    help="comma-separated seeds for the phase-8 replay")
-    args = ap.parse_args()
+def turns(torch, reps, f_other, f_this):
+    """CUDA-event ms per call of ``f_other`` and ``f_this``, timed other,
+    this, this, other."""
+    t = [chip_smoke.cuda_ms(torch, f, reps=reps)
+         for f in (f_other, f_this, f_this, f_other)]
+    return {"other": [t[0], t[3]], "this": [t[1], t[2]]}
 
-    import torch
 
-    if not torch.cuda.is_available():
-        chip_smoke.fail("torch sees no CUDA device")
-    from motionmixerconv_tpu_torch.models import ConvMixer
+def b1_cases(torch, dev, reps):
+    """B1-fwd and B1-bwd at the flagship encoder's shape."""
     from motionmixerconv_tpu_torch.models.encoding import harmonic_frequencies
     from motionmixerconv_tpu_torch.ops import harmonic as this
-    from motionmixerconv_tpu_torch.serving import resolve_device
 
-    other = load_other(args.other)
-    card = chip_smoke.card_line()
-    dev = torch.device(chip_smoke.DEVICE)
-    torch.cuda.set_device(dev)
-    resolve_device(dev)  # float32 convolutions and products, as the port runs
+    other = importlib.import_module("mmc_other.ops.harmonic")
     gen = torch.Generator().manual_seed(chip_smoke.SEED)
     rows = max(r for _, r in FWD_CASES)
     x_all = (torch.randn(rows, D, generator=gen) * 0.5).to(dev)
@@ -122,14 +109,6 @@ def main() -> None:
     b = ((torch.rand(E, generator=gen) * 2 - 1) / (2 * N * D) ** 0.5).to(dev)
     freqs = harmonic_frequencies(N, 0.1).to(dev)
     wi = this.reorder_weight(w, N, D)
-    this.load_library()
-    importlib.import_module("mmc_other.ops._build").load_library()
-
-    def turns(f_other, f_this):
-        t = [chip_smoke.cuda_ms(torch, f, reps=args.reps)
-             for f in (f_other, f_this, f_this, f_other)]
-        return {"other": [t[0], t[3]], "this": [t[1], t[2]]}
-
     results = []
     with torch.no_grad():
         for impl, r in FWD_CASES:
@@ -147,12 +126,12 @@ def main() -> None:
                 "kernel": "B1-fwd", "impl": impl, "rows": r,
                 "err_vs_plain": err,
                 "err_vs_other": float((got - old).abs().max()),
-                **turns(lambda: other.harmonic_dense_fwd(
+                **turns(torch, reps, lambda: other.harmonic_dense_fwd(
                             x2d, w, b, freqs, impl, wi),
                         lambda: this.harmonic_dense_fwd(
                             x2d, w, b, freqs, impl, wi)),
                 "plain": chip_smoke.cuda_ms(torch, lambda: this.harmonic_dense_plain(
-                    x2d, w, b, freqs, impl), reps=args.reps)})
+                    x2d, w, b, freqs, impl), reps=reps)})
             chip_smoke.say(json.dumps(results[-1]))
         for impl, r, dx_on in BWD_CASES:
             x2d, gr = x_all[:r].contiguous(), g_all[:r].contiguous()
@@ -173,13 +152,182 @@ def main() -> None:
             results.append({
                 "kernel": "B1-bwd", "impl": impl, "rows": r, "dx": dx_on,
                 "rel_err_vs_plain": errs,
-                **turns(lambda: other.harmonic_dense_bwd(
+                **turns(torch, reps, lambda: other.harmonic_dense_bwd(
                             x2d, gr, w, freqs, impl, wi, need_dx=dx_on),
                         lambda: this.harmonic_dense_bwd(
                             x2d, gr, w, freqs, impl, wi, need_dx=dx_on)),
                 "plain": chip_smoke.cuda_ms(torch, lambda: this.harmonic_dense_bwd_plain(
-                    x2d, gr, w, freqs, impl, need_dx=dx_on), reps=args.reps)})
+                    x2d, gr, w, freqs, impl, need_dx=dx_on), reps=reps)})
             chip_smoke.say(json.dumps(results[-1]))
+    return results
+
+
+def ab_case(torch, reps, name, tol, this_fn, other_fn, plain_fn, extra):
+    """One kernel case: this tree's kernel against the plain version and a
+    second launch of itself, against the other tree's kernel, then timed in
+    turns; the plain version timed once."""
+    got, again = this_fn(), this_fn()
+    want, old = plain_fn(), other_fn()
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    if not torch.isfinite(got).all() or not err <= tol:
+        chip_smoke.fail(f"{name}: {err:.3e} from the plain version (tol {tol:g})")
+    if not torch.equal(got, again):
+        chip_smoke.fail(f"{name}: two launches differ")
+    row = {"kernel": name, **extra, "err_vs_plain": err,
+           "err_vs_other": float((got - old).abs().max()),
+           **turns(torch, reps, other_fn, this_fn),
+           "plain": chip_smoke.cuda_ms(torch, plain_fn, reps=reps)}
+    chip_smoke.say(json.dumps(row))
+    return row
+
+
+def b3_cases(torch, dev, reps):
+    """B3 at the autoregressive and the study shape (warmed BatchNorm
+    statistics), each tree packing the same model."""
+    from motionmixerconv_tpu_torch.models import ConvMixer
+    from motionmixerconv_tpu_torch.ops import conv_mixer, conv_mixer_mc as this
+
+    other = importlib.import_module("mmc_other.ops.conv_mixer_mc")
+    gb = torch.Generator().manual_seed(chip_smoke.SEED + 7)
+    x = (torch.randn(128, 10, 66, generator=gb) * 0.5).to(dev)
+    shapes = {"autoregressive": chip_smoke.AUTOREG, "study": chip_smoke.STUDY}
+    results = []
+    with torch.no_grad():
+        for tag, cfg in shapes.items():
+            model = chip_smoke.warm_batchnorm(
+                torch, ConvMixer(**cfg, generator=gb).eval(), gb).to(dev)
+            fused = conv_mixer.make_fused_conv_mixer(model)
+            spec, wts = fused.spec, fused.weights
+            o_spec, o_wts = other.pack_conv_mixer_mc(model)
+            y_all = fused.encoder(x).permute(0, 3, 1, 2).contiguous()
+            for t, b in B3_CASES:
+                if t != tag:
+                    continue
+                y = y_all[:b].contiguous()
+                plan = this.mc_plan(spec, b, this.cluster_slots(y.device.index))
+                results.append(ab_case(
+                    torch, reps, "B3", chip_smoke.TOL_B3,
+                    lambda: this.conv_mixer_mc_fused(y, wts, spec),
+                    lambda: other.conv_mixer_mc_fused(y, o_wts, o_spec),
+                    lambda: this.conv_mixer_mc_plain(y, wts, spec),
+                    {"shape": tag, "batch": b, "plan": {
+                        "K": plan.K, "threads": plan.threads,
+                        "tile": this.TILES[plan.tile]}}))
+    return results
+
+
+def b3_plans(torch, dev, reps):
+    """This tree's B3 under every launch plan its shapes allow (each cluster
+    size and stencil tile), at B = 1, 32 and 128 for the autoregressive
+    and the study shape, each checked against the plain version: which
+    plan ``mc_plan`` should pick."""
+    from motionmixerconv_tpu_torch.models import ConvMixer
+    from motionmixerconv_tpu_torch.ops import conv_mixer, conv_mixer_mc as this
+
+    gb = torch.Generator().manual_seed(chip_smoke.SEED + 7)
+    x = (torch.randn(128, 10, 66, generator=gb) * 0.5).to(dev)
+    shapes = {"autoregressive": chip_smoke.AUTOREG, "study": chip_smoke.STUDY}
+    results = []
+    with torch.no_grad():
+        for tag, cfg in shapes.items():
+            model = chip_smoke.warm_batchnorm(
+                torch, ConvMixer(**cfg, generator=gb).eval(), gb).to(dev)
+            fused = conv_mixer.make_fused_conv_mixer(model)
+            spec, wts = fused.spec, fused.weights
+            y_all = fused.encoder(x).permute(0, 3, 1, 2).contiguous()
+            for b in (1, 32, 128):
+                y = y_all[:b].contiguous()
+                want = this.conv_mixer_mc_plain(y, wts, spec)
+                slots = this.cluster_slots(y.device.index)
+                chosen = this.mc_plan(spec, b, slots)
+                for k in spec.cluster_sizes():
+                    for t in range(len(this.TILES)):
+                        plan = this.mc_plan(spec, b, slots, K=k, tile=t)
+                        got = this.conv_mixer_mc_fused(y, wts, spec, plan)
+                        err = float((got - want).abs().max())
+                        if not err <= chip_smoke.TOL_B3:
+                            chip_smoke.fail(f"B3 {tag} B={b} {plan}: {err:.3e}")
+                        results.append({
+                            "kernel": "B3 plan", "shape": tag, "batch": b,
+                            "K": k, "tile": this.TILES[t],
+                            "threads": plan.threads, "chosen": plan == chosen,
+                            "ms": chip_smoke.cuda_ms(
+                                torch, lambda: this.conv_mixer_mc_fused(
+                                    y, wts, spec, plan), reps=reps)})
+                        chip_smoke.say(json.dumps(results[-1]))
+    return results
+
+
+def b4_cases(torch, dev, reps):
+    """B4 at the AMASS shape (warmed BatchNorm statistics), each tree
+    packing the same model."""
+    from motionmixerconv_tpu_torch.models import MlpMixer
+    from motionmixerconv_tpu_torch.ops import mlp_mixer as this
+
+    other = importlib.import_module("mmc_other.ops.mlp_mixer")
+    gm = torch.Generator().manual_seed(chip_smoke.SEED + 9)
+    results = []
+    with torch.no_grad():
+        model = chip_smoke.warm_batchnorm(
+            torch, MlpMixer(**chip_smoke.AMASS_MLP, generator=gm).eval(),
+            gm).to(dev)
+        fused = this.make_fused_mlp_mixer(model)
+        spec, wts = fused.spec, fused.weights
+        o_spec, o_wts = other.pack_mlp_mixer(model)
+        x = (torch.randn(max(B4_BATCHES), spec.T, spec.D, generator=gm)
+             * 0.5).to(dev)
+        for b in B4_BATCHES:
+            xb = x[:b].contiguous()
+            results.append(ab_case(
+                torch, reps, "B4", chip_smoke.TOL_B4,
+                lambda: this.mlp_mixer_fused(xb, wts, spec),
+                lambda: other.mlp_mixer_fused(xb, o_wts, o_spec),
+                lambda: this.mlp_mixer_plain(xb, wts, spec),
+                {"shape": "amass", "batch": b}))
+    return results
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--other", required=True, type=Path)
+    ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--kernels", default="B1,B3,B4",
+                    help="comma-separated kernels to time: B1, B3, B4")
+    ap.add_argument("--step-seeds", default="",
+                    help="comma-separated seeds for the phase-8 replay")
+    ap.add_argument("--b3-plans", action="store_true",
+                    help="also time this tree's B3 under every launch plan")
+    args = ap.parse_args()
+    kernels = {k for k in args.kernels.split(",") if k}
+    if not kernels <= {"B1", "B3", "B4"}:
+        chip_smoke.fail(f"unknown kernels {kernels - {'B1', 'B3', 'B4'}}")
+
+    import torch
+
+    if not torch.cuda.is_available():
+        chip_smoke.fail("torch sees no CUDA device")
+    from motionmixerconv_tpu_torch.models import ConvMixer
+    from motionmixerconv_tpu_torch.ops import _build
+    from motionmixerconv_tpu_torch.serving import resolve_device
+
+    load_other(args.other)
+    card = chip_smoke.card_line()
+    dev = torch.device(chip_smoke.DEVICE)
+    torch.cuda.set_device(dev)
+    resolve_device(dev)  # float32 convolutions and products, as the port runs
+    _build.load_library()
+    importlib.import_module("mmc_other.ops._build").load_library()
+
+    results = []
+    if "B1" in kernels:
+        results += b1_cases(torch, dev, args.reps)
+    if "B3" in kernels:
+        results += b3_cases(torch, dev, args.reps)
+    if "B4" in kernels:
+        results += b4_cases(torch, dev, args.reps)
+    if args.b3_plans:
+        results += b3_plans(torch, dev, args.reps)
     steps = []
     if args.step_seeds:
         steps = replay_step(
@@ -188,6 +336,8 @@ def main() -> None:
              "other": importlib.import_module("mmc_other.models").ConvMixer})
     chip_smoke.say(card)
     chip_smoke.say(json.dumps({"card": card, "ab": results, "steps": steps}))
+    if not all(r[k]["ok"] for r in steps for k in ("plain", "this", "other")):
+        chip_smoke.fail("a replayed training step is outside its bounds")
 
 
 if __name__ == "__main__":

@@ -1,7 +1,8 @@
 // Device helpers shared by the fused kernels (conv_mixer_fused.cu,
 // conv_mixer_mc.cu, mlp_mixer_fused.cu): warp reductions, the activations
 // with the reference's numerics (precise erff/expf/log1pf/tanhf, no fast
-// math), and the row-wise LayerNorm. Counterparts of `_act` and `_erf` in
+// math), the row-wise LayerNorm, and a block-wide asynchronous copy from
+// device memory into shared memory. Counterparts of `_act` and `_erf` in
 // motionmixerconv_tpu/ops/pallas_mixer.py; CUDA has a precise erff, so the
 // Pallas polynomial stand-in is not needed.
 
@@ -58,6 +59,35 @@ __device__ inline void layer_norm_rows(const float* in, float* out,
     for (int e = lane; e < E; e += 32)
       out[(long)r * out_stride + e] = (row[e] - mu) * inv * g[e] + b[e];
   }
+}
+
+// dst[r * dld + j] = src[r * sld + j] for r < rows, j < cols: shared
+// memory from device memory, by the whole block with cp.async (4 bytes a
+// copy), every copy in flight at once; complete after copy_async_wait() and
+// a barrier.
+__device__ inline void copy_rows_async(float* dst, int dld,
+                                       const float* __restrict__ src, long sld,
+                                       int rows, int cols) {
+  auto copy = [](float* to, const float* from) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                     (unsigned)__cvta_generic_to_shared(to)),
+                 "l"(from)
+                 : "memory");
+  };
+  if (rows == 1) {  // the whole block along the one row
+    for (int j = threadIdx.x; j < cols; j += blockDim.x) copy(dst + j, src + j);
+    return;
+  }
+  // a warp a row
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int r = warp; r < rows; r += blockDim.x >> 5)
+    for (int j = lane; j < cols; j += 32)
+      copy(dst + (long)r * dld + j, src + r * sld + j);
+}
+
+// this thread's cp.async copies are done
+__device__ __forceinline__ void copy_async_wait() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 }  // namespace mmc

@@ -30,6 +30,16 @@ NVCC_FLAGS = [
 ]
 
 MAX_SMEM_BYTES = 232448  # dynamic shared memory one H100 block can use
+SM_SMEM_BYTES = 233472   # shared memory of one H100 SM
+
+
+def slices(n: int, K: int):
+    """(first, width) of each of K contiguous slices of n columns, the first
+    n % K one wider: how a cluster's blocks split a width
+    (``csrc/cluster.cuh`` slice_start, slice_width)."""
+    base, extra = divmod(n, K)
+    return [(r * base + min(r, extra), base + (r < extra)) for r in range(K)]
+
 
 _lock = threading.Lock()
 _lib = None
@@ -107,9 +117,11 @@ def _declare(lib) -> None:
     lib.mmc_conv_mixer_fused.restype = i
     lib.mmc_conv_mixer_mc_weights_numel.argtypes = [i] * 11
     lib.mmc_conv_mixer_mc_weights_numel.restype = L
-    lib.mmc_conv_mixer_mc_smem_bytes.argtypes = [i] * 11
+    lib.mmc_conv_mixer_mc_smem_bytes.argtypes = [i] * 12
     lib.mmc_conv_mixer_mc_smem_bytes.restype = L
-    lib.mmc_conv_mixer_mc.argtypes = [p, p, p] + [i] * 16 + [p]
+    lib.mmc_conv_mixer_mc_max_clusters.argtypes = [i] * 3
+    lib.mmc_conv_mixer_mc_max_clusters.restype = i
+    lib.mmc_conv_mixer_mc.argtypes = [p, p, p] + [i] * 19 + [p]
     lib.mmc_conv_mixer_mc.restype = i
     lib.mmc_mlp_mixer.argtypes = [p] * 4 + [i] * 18 + [p]
     lib.mmc_mlp_mixer.restype = i

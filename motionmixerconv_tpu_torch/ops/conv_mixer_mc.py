@@ -1,25 +1,30 @@
 """Fused multi-channel ConvMixer core (conv_nChan >= 2): weight packing, the
-CUDA kernel's wrapper and its plain PyTorch version.
+CUDA kernel's launch plan and wrapper, and its plain PyTorch version.
 
 Counterpart of ``FusedConvMixerMC`` in
 ``motionmixerconv_tpu/ops/pallas_conv_mixer.py``. The PoseEncoder runs
 outside the kernel in plain torch; everything after it is one launch of
-``csrc/conv_mixer_mc.cu``. The TPU kernel's block-Toeplitz mix matrices, SE
-squeeze/scatter matrices and folded decoder matrix are devices of the MXU
-and are not carried over: the packed weights are the model's own (conv
-weights, biases, BatchNorm folded to a per-channel affine, SE, decoder).
-``conv_mixer_mc_plain`` computes the same function from the same packed
-weights; ``conv_mixer_mc_fused`` uses it only for a tensor on the CPU.
-Inference only.
+``csrc/conv_mixer_mc.cu``: one cluster of K blocks per sample, block r
+owning a contiguous slice of the E columns (``mc_plan`` picks K, the
+threads and the stencil tile). The TPU kernel's block-Toeplitz mix
+matrices, SE squeeze/scatter matrices and folded decoder matrix are devices
+of the MXU and are not carried over: the packed weights are the model's own
+(conv weights, biases, BatchNorm folded to a per-channel affine, SE,
+decoder). ``conv_mixer_mc_plain`` computes the same function from the same
+packed weights; ``conv_mixer_mc_fused`` uses it only for a tensor on the
+CPU. Inference only.
 
-Domain: conv_nChan * in_nTP <= 128, as the JAX kernel's, and the sample's
-three (C, T, E) planes (one with a zero halo over E) plus one block's
-weights within one block's shared memory; outside it the factory raises
+Domain: conv_nChan * in_nTP <= 128, as the JAX kernel's, and one block's
+share of the sample (its column slices of the three (C, T, E) planes, one
+with its halos, plus one mixer block's weights) within one block's shared
+memory for some cluster of at most 16 blocks whose slices are no narrower
+than the convs' widest 'same' pad; outside it the factory raises
 NotImplementedError.
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import List, Tuple
 
@@ -27,7 +32,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ._build import MAX_SMEM_BYTES, Counter, check, load_library, stream_ptr
+from ._build import (MAX_SMEM_BYTES, SM_SMEM_BYTES, Counter, check,
+                     load_library, stream_ptr)
 from .activations import gelu_exact, get_activation
 from .conv_mixer import (_layer_norm, _same_equivalent, _unpack, bn_affine,
                          check_inputs, plain_encoder_copy)
@@ -36,7 +42,15 @@ LAUNCHES = Counter()     # kernel launches (CUDA tensors)
 PLAIN_CALLS = Counter()  # calls served by the plain version (CPU tensors)
 
 MAX_ROWS = 128  # conv_nChan * in_nTP, the JAX kernel's lane limit
-CO_TILE = 8     # output channels the kernel computes per pass
+CO_TILE = 8     # the kernel pads output channels to a multiple of this
+CLUSTER_SIZES = (1, 2, 4, 8, 16)  # blocks per sample (16: non-portable)
+# the stencil's tiles: output rows x consecutive columns x output channels
+# per thread (csrc/conv_mixer_mc.cu kTileRows, kTileCols, kTileCo)
+TILES = ((1, 1, 2), (1, 3, 8))
+MAX_CB = max(c for _, c, _ in TILES)
+BUSY_TASKS = 256  # stencil tasks a block should have to keep its warps busy
+MAX_THREADS = 640
+MIN_THREADS = 128
 
 
 @dataclass(frozen=True)
@@ -79,21 +93,41 @@ class ConvMixerMCSpec:
         return (self.num_blocks * sum(n for _, n in block)
                 + sum(n for _, n in glob))
 
-    def z_stride(self) -> int:
-        """Row stride of the kernel's LN output plane: E plus the convs'
-        largest left and right 'same' padding, kept as a zero halo."""
+    def halos(self) -> Tuple[int, int]:
+        """The convs' largest left and right 'same' padding over E
+        (torch's: an even kernel's extra pad on the right)."""
         (_, kw1), (_, kw2) = self.k1, self.k2
-        left = max((kw1 - 1) // 2, (kw2 - 1) // 2)
-        right = max(kw1 - 1 - (kw1 - 1) // 2, kw2 - 1 - (kw2 - 1) // 2)
-        return self.E + left + right
+        return (max((kw1 - 1) // 2, (kw2 - 1) // 2),
+                max(kw1 - 1 - (kw1 - 1) // 2, kw2 - 1 - (kw2 - 1) // 2))
 
-    def smem_bytes(self) -> int:
+    def z_stride(self, K: int) -> int:
+        """Row stride of a block's LN output plane: its widest column slice,
+        both halos, and the columns a stencil tile's last run reads past
+        the slice."""
+        return -(-self.E // K) + sum(self.halos()) + MAX_CB - 1
+
+    def smem_bytes(self, K: int) -> int:
+        """Dynamic shared memory of one block of a K-block cluster, as the
+        kernel lays it out: one mixer block's weights (rounded up to 16
+        bytes); the column slices of the residual stream, the LN output
+        (with halos) and the branch output (or the decoder's (P, slice));
+        the LN's four per-row vectors, the SE's three per-t vectors and its
+        hidden; the fc_out partials."""
         block, _ = self.layout()
         staged = -(-sum(n for _, n in block) // 4) * 4
-        plane = self.C * self.T * self.E
-        return 4 * (staged + plane + self.C * self.T * self.z_stride()
-                    + max(plane, self.P * self.E) + 2 * self.T
-                    + max(self.H, 1))
+        R, ws = self.C * self.T, -(-self.E // K)
+        return 4 * (staged + R * ws + R * self.z_stride(K)
+                    + max(R, self.P) * ws + 4 * R + 3 * self.T
+                    + max(self.H, 1) + self.P * self.D)
+
+    def cluster_sizes(self) -> List[int]:
+        """The cluster sizes the kernel takes at this shape: every column
+        slice at least the widest halo (so halos come from the two
+        neighbours only) and one block within its shared memory."""
+        halo = max(*self.halos(), 1)
+        return [K for K in CLUSTER_SIZES
+                if (K == 1 or self.E // K >= halo)
+                and self.smem_bytes(K) <= MAX_SMEM_BYTES]
 
     def kernel_args(self) -> List[int]:
         return [self.C, self.T, self.E, self.P, self.D, self.H,
@@ -138,11 +172,13 @@ def pack_conv_mixer_mc(model) -> Tuple[ConvMixerMCSpec, torch.Tensor]:
         use_se=model.use_se, use_max=model.use_max_pooling,
         activation=model.activation)
     get_activation(spec.activation)  # ValueError for an unknown name
-    if spec.smem_bytes() > MAX_SMEM_BYTES:
+    if not spec.cluster_sizes():
+        K = max(k for k in CLUSTER_SIZES
+                if k == 1 or spec.E // k >= max(*spec.halos(), 1))
         raise NotImplementedError(
-            f"shape outside the fused MC kernel's limits: it needs "
-            f"{spec.smem_bytes()} bytes of shared memory, over "
-            f"{MAX_SMEM_BYTES}")
+            f"shape outside the fused MC kernel's limits: even a cluster of "
+            f"{K} blocks needs {spec.smem_bytes(K)} bytes of shared memory "
+            f"per block, over {MAX_SMEM_BYTES}")
 
     E, Cp = spec.E, spec.Cp
     pad = Cp - C
@@ -242,10 +278,92 @@ def conv_mixer_mc_plain(y: torch.Tensor, flat: torch.Tensor,
     return d @ g["w_out"].view(spec.E, spec.D) + g["b_out"]
 
 
+@dataclass(frozen=True)
+class MCPlan:
+    """One launch of the kernel: a cluster of ``K`` blocks of ``threads``
+    threads per sample, stencil tile ``TILES[tile]``, ``smem`` bytes of
+    dynamic shared memory a block. Block r owns columns
+    ``_build.slices(E, K)[r]``."""
+
+    K: int
+    threads: int
+    tile: int
+    smem: int
+
+
+def _stencil_tasks(spec: ConvMixerMCSpec, K: int, tile: int) -> int:
+    """Threads' worth of stencil work in one block: (output-channel tiles)
+    x (row tiles) x (column runs of its widest slice)."""
+    rb, cb, co = TILES[tile]
+    runs = -(-(-(-spec.E // K)) // cb)
+    return spec.Cp // co * -(-spec.T // rb) * runs
+
+
+def _plan(spec: ConvMixerMCSpec, K: int, tile: int) -> MCPlan:
+    tasks = _stencil_tasks(spec, K, tile)
+    threads = min(MAX_THREADS, max(MIN_THREADS, 32 * -(-tasks // 32)))
+    return MCPlan(K, threads, tile, spec.smem_bytes(K))
+
+
+@functools.lru_cache(maxsize=None)
+def cluster_slots(index: int) -> Tuple[Tuple[int, int], ...]:
+    """(K, clusters of K blocks that card ``index`` holds at once with one
+    block an SM) for every cluster size, from the kernel's
+    cudaOccupancyMaxActiveClusters query (a block of more than half an
+    SM's shared memory): what ``mc_plan`` sizes a launch by. An H100 SXM
+    answers ((1, 132), (2, 66), (4, 30), (8, 15), (16, 7))."""
+    lib = load_library()
+    slots = []
+    with torch.cuda.device(index):
+        for K in CLUSTER_SIZES:
+            n = lib.mmc_conv_mixer_mc_max_clusters(K, MIN_THREADS,
+                                                   SM_SMEM_BYTES // 2 + 1)
+            if n < 0:
+                check(lib, -n, f"the card's room for clusters of {K} blocks")
+            slots.append((K, n))
+    return tuple(slots)
+
+
+@functools.lru_cache(maxsize=512)
+def mc_plan(spec: ConvMixerMCSpec, batch: int,
+            slots: Tuple[Tuple[int, int], ...], K: int = None,
+            tile: int = None) -> MCPlan:
+    """The launch for ``batch`` samples on a card with ``slots``
+    (``cluster_slots``): the widest cluster whose ``batch`` clusters the
+    card holds at once, the shortest latency chain a sample can have in one
+    wave; one block a sample above that (or the smallest cluster the shape
+    allows). The tile: 1 x 3 x 8 where it gives a block BUSY_TASKS tasks,
+    else 1 x 1 x 2. ``K`` and ``tile`` override the choice (for timing the
+    alternatives); NotImplementedError where the kernel does not take the
+    shape or the override."""
+    sizes = spec.cluster_sizes()
+    if not sizes or (K is not None and K not in sizes):
+        raise NotImplementedError(
+            f"the fused MC kernel takes clusters of {sizes} blocks at this "
+            f"shape (shared memory and halos), not {K}")
+    if K is None:
+        room = dict(slots)
+        K = max((k for k in sizes if batch <= room[k]), default=min(sizes))
+    if tile is None:
+        tile = _tile(spec, K)
+    return _plan(spec, K, tile)
+
+
+def _tile(spec: ConvMixerMCSpec, K: int) -> int:
+    """The tile with the most multiply-adds a task that still gives a block
+    of a K-block cluster BUSY_TASKS tasks; the smallest if none does."""
+    busy = [t for t in range(len(TILES))
+            if _stencil_tasks(spec, K, t) >= BUSY_TASKS]
+    return max(busy, key=lambda t: TILES[t][0] * TILES[t][1] * TILES[t][2],
+               default=0)
+
+
 def conv_mixer_mc_fused(y: torch.Tensor, flat: torch.Tensor,
-                        spec: ConvMixerMCSpec) -> torch.Tensor:
+                        spec: ConvMixerMCSpec,
+                        plan: MCPlan = None) -> torch.Tensor:
     """(B, C, T, E) encoder output -> (B, P, D): the CUDA kernel for a CUDA
-    tensor, the plain version for a CPU tensor, an error otherwise."""
+    tensor (``plan``, default ``mc_plan`` for B samples on its card), the
+    plain version for a CPU tensor, an error otherwise."""
     check_inputs("conv_mixer_mc_fused", y, flat, spec,
                  (spec.C, spec.T, spec.E))
     if y.device.type == "cpu":
@@ -256,11 +374,15 @@ def conv_mixer_mc_fused(y: torch.Tensor, flat: torch.Tensor,
     if B == 0:
         return out
     lib = load_library()
+    if plan is None:
+        plan = mc_plan(spec, B, cluster_slots(y.device.index))
     with torch.cuda.device(y.device):
         err = lib.mmc_conv_mixer_mc(
             y.data_ptr(), flat.data_ptr(), out.data_ptr(), B,
-            *spec.kernel_args(), stream_ptr(y.device))
-    check(lib, err, "conv_mixer_mc_fused")
+            *spec.kernel_args(), plan.K, plan.threads, plan.tile,
+            stream_ptr(y.device))
+    check(lib, err, f"conv_mixer_mc_fused (clusters of {plan.K} blocks x "
+          f"{plan.threads} threads, {plan.smem} bytes of shared memory each)")
     LAUNCHES.add()
     return out
 

@@ -121,7 +121,9 @@ def test_packed_layout_matches_spec():
     assert flat.numel() == spec.numel()
     assert spec.C == 3 and spec.Cp == 8 and spec.H == 5
     assert spec.k1 == (5, 5) and spec.k2 == (5, 5)
-    assert spec.smem_bytes() <= _build.MAX_SMEM_BYTES
+    assert spec.cluster_sizes()
+    assert all(spec.smem_bytes(K) <= _build.MAX_SMEM_BYTES
+               for K in spec.cluster_sizes())
     blocks, _ = conv_mixer._unpack(flat, spec)
     # conv1 of block 0: [ci][dt][de][co], co zero padded to Cp
     w = blocks[0]["w1"].view(3, 5, 5, 8)
@@ -133,8 +135,8 @@ def test_packed_layout_matches_spec():
 
 def test_autoregressive_default_fits_the_kernel():
     """The autoregressive CLI's default model and the ConvMixer study's
-    shape go to B3 (their three planes and one block's weights fit one
-    block's shared memory)."""
+    shape go to B3, with every cluster size (even one block holds a whole
+    sample's three planes and one mixer block's weights)."""
     ar = dict(num_blocks=4, dimPosIn=66, dimPosEmb=192, dimPosOut=66,
               in_nTP=10, out_nTP=5, conv_nChan=8, conv1_kernel_shape=(5, 5),
               mode_conv="twice", activation="mish", regularization=-1.0,
@@ -144,19 +146,29 @@ def test_autoregressive_default_fits_the_kernel():
     for cfg in (ar, study):
         fused = conv_mixer.make_fused_conv_mixer(ConvMixer(**cfg).eval())
         assert isinstance(fused, conv_mixer_mc.FusedConvMixerMC)
-        assert fused.spec.smem_bytes() <= _build.MAX_SMEM_BYTES
+        assert fused.spec.cluster_sizes() == [1, 2, 4, 8, 16]
+        assert all(fused.spec.smem_bytes(K) <= _build.MAX_SMEM_BYTES
+                   for K in fused.spec.cluster_sizes())
 
 
 @pytest.mark.parametrize("over,fits", [
     (dict(dimPosEmb=223), True),
-    (dict(dimPosEmb=224), False),
-    (dict(conv_nChan=12), False),
+    (dict(dimPosEmb=224), True),
+    (dict(conv_nChan=12), True),
+    (dict(dimPosEmb=512), True),
+    (dict(dimPosEmb=8192), False),
+    (dict(conv_nChan=12, conv1_kernel_shape=(9, 29)), False),
 ])
 def test_shared_memory_bounds_the_domain_inside_the_jax_one(over, fits):
-    """Where the JAX kernel runs (conv_nChan * in_nTP <= 128) B3 still
-    refuses planes that outgrow one block's shared memory: at the
-    autoregressive widths, dimPosEmb above 223 or conv_nChan 12. The
-    ``Predictor`` then serves with the plain forward (ROADMAP B3)."""
+    """Where the JAX kernel runs (conv_nChan * in_nTP <= 128) B3 takes
+    every shape whose column slices fit one block's shared memory for some
+    cluster of up to 16 blocks: at the autoregressive widths dimPosEmb 224
+    and 512 and conv_nChan 12 (refused while one block held a whole
+    sample). It refuses what still outgrows the largest cluster: planes of
+    dimPosEmb 8192 (half a megabyte a block at 16 blocks) or conv_nChan 12
+    with (9, 29) kernels (each block stages ~400 KB of one mixer block's
+    conv weights); the ``Predictor`` then serves with the plain
+    forward."""
     cfg = dict(num_blocks=1, dimPosIn=66, dimPosEmb=192, dimPosOut=66,
                in_nTP=10, out_nTP=5, conv_nChan=8, conv1_kernel_shape=(5, 5),
                mode_conv="twice", activation="mish", regularization=-1.0,
@@ -174,12 +186,13 @@ def test_shared_memory_bounds_the_domain_inside_the_jax_one(over, fits):
 @pytest.mark.parametrize("over,match", [
     (dict(conv_nChan=13), "conv_nChan\\*in_nTP <= 128"),
     (dict(conv_nChan=2, in_nTP=65), "conv_nChan\\*in_nTP <= 128"),
-    (dict(conv_nChan=8, dimPosEmb=512), "shared memory"),
+    (dict(conv_nChan=8, dimPosEmb=8192), "shared memory"),
     (dict(conv1_padding=(0, 0)), "same"),
 ])
 def test_make_fused_conv_mixer_mc_rejects_shapes_outside_the_kernel(over, match):
     """Only where the JAX kernel refuses (R = conv_nChan * in_nTP > 128) and
-    where shared memory or the padding set a limit."""
+    where shared memory (even at 16 blocks a sample) or the padding set a
+    limit."""
     with pytest.raises(NotImplementedError, match=match):
         conv_mixer.make_fused_conv_mixer(ConvMixer(**_cfg(**over)))
 

@@ -11,6 +11,7 @@ import threading
 import time
 import urllib.error
 import urllib.request
+import warnings
 
 import jax
 import jax.numpy as jnp
@@ -147,6 +148,30 @@ def test_shapes_outside_the_kernel_fall_back_with_a_warning():
     assert p.predict(_x(2, cfg)).shape == (2, 5, 66)
     assert (conv_mixer.PLAIN_CALLS.value,
             conv_mixer_mc.PLAIN_CALLS.value) == before
+
+
+def test_wide_multichannel_model_gets_b3():
+    """conv_nChan 8 at dimPosEmb 224: planes beyond one block's shared
+    memory, taken by B3's clusters, so the Predictor routes to the fused
+    kernel with no fallback."""
+    cfg = dict(num_blocks=1, dimPosIn=66, dimPosEmb=224, dimPosOut=66,
+               in_nTP=10, out_nTP=5, conv_nChan=8, conv1_kernel_shape=(5, 5),
+               mode_conv="twice", activation="mish", regularization=-1.0,
+               use_se=True, r_se=8, encoder_n_harmonic_functions=0)
+    model = ConvMixer(**cfg, generator=torch.Generator().manual_seed(0))
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        p = Predictor(model, device="cpu")
+    assert type(p._fused).__name__ == "FusedConvMixerMC"
+    assert p.fused_fallback_reason is None
+    assert 1 not in p._fused.spec.cluster_sizes()
+    x = _x(2, cfg)
+    before = conv_mixer_mc.PLAIN_CALLS.value
+    got = p.predict(x)
+    assert conv_mixer_mc.PLAIN_CALLS.value == before + 1
+    with torch.no_grad():
+        want = p.model(torch.from_numpy(x))
+    torch.testing.assert_close(got, want, rtol=0, atol=2e-5)
 
 
 def test_predict_routes_multichannel_to_b3_and_matches_jax():

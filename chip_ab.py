@@ -3,24 +3,36 @@
 checkout of the repository, in turns on one card.
 
     python3 chip_ab.py --other path/to/other/checkout [--reps 20]
-        [--kernels B1,B3,B4] [--step-seeds 4,11,12] [--b3-plans]
+        [--kernels B1,B2,B3,B4] [--step-seeds 4,11,12] [--b2-plans]
+        [--b3-plans]
 
 Both trees' ``motionmixerconv_tpu_torch`` are imported side by side (the
 other one under the package name ``mmc_other``); each builds its kernels
 from its own ``csrc/`` into its own ``build/``. The cases: the harmonic
 encoder kernels B1-fwd and B1-bwd at the flagship encoder's shape (D = 66,
-n = 64, E = 50); the multi-channel ConvMixer core B3 at B = 1 and 128 for
-the autoregressive and the study shape; the fused MlpMixer B4 at B = 1, 32
-and 128 for the AMASS shape (random weights and inputs from a seed; each
-tree packs the same model). For every case the script checks this tree's
+n = 64, E = 50); the single-channel ConvMixer core B2 at B = 1, 7, 32 and
+128 for the flagship and a BatchNorm + max-pool + 'once' model; the
+multi-channel ConvMixer core B3 at B = 1 and 128 for the autoregressive and
+the study shape; the fused MlpMixer B4 at B = 1, 32 and 128 for the AMASS
+shape (random weights and inputs from a seed; each tree packs the same
+model). For every case the script checks this tree's
 kernel against the plain version (``chip_smoke.py``'s tolerances, and a
 second launch bit-identical) and against the other tree's kernel, then
-times by CUDA events other, this, this, other on the same inputs, and the
-plain version once. With ``--step-seeds``, it also replays
+times by CUDA events around calls made from Python (``chip_smoke.cuda_ms``)
+other, this, this, other on the same inputs, and the plain version once;
+B2 and B4 are timed in turns a second time with their calls queued behind
+a spin kernel (``chip_smoke.queued_ms``, key ``device``), so the events
+time the device and not Python's pace of launching. With ``--kernels B2``
+it also times the flagship's ``serving.Predictor.predict`` (encoder and B2)
+of both trees at b = 1 and 32 on the host clock, in turns. With
+``--step-seeds``, it also replays
 ``chip_smoke.py`` phase 8 (``step_check``: one flagship training step of
 the plain model and of both trees' fused encoders, each float32 gradient
-held to a float64 step) for each seed. With ``--b3-plans``, it times this
-tree's B3 under every cluster size and stencil tile the shapes allow. It
+held to a float64 step) for each seed. With ``--b2-plans``, it times this
+tree's B2 under every warp count its kernel takes (one block a sample;
+``b2_plan`` picks min(T, 16)), launched through the library directly; with
+``--b3-plans``, this tree's B3 under every
+cluster size and stencil tile the shapes allow. It
 prints the card's name and power limit and one JSON line with every
 result; it exits non-zero if a check fails or there is no card.
 """
@@ -46,6 +58,7 @@ BWD_CASES = [("direct", 500, False), ("direct", 2560, False),
              ("doubling", 500, False)]
 
 
+B2_BATCHES = (1, 7, 32, 128)
 B3_CASES = [("autoregressive", 1), ("autoregressive", 128), ("study", 1),
             ("study", 128)]
 B4_BATCHES = (1, 32, 128)
@@ -86,11 +99,11 @@ def replay_step(torch, dev, seeds, fused_models):
     return out
 
 
-def turns(torch, reps, f_other, f_this):
+def turns(torch, reps, f_other, f_this, timer=None):
     """CUDA-event ms per call of ``f_other`` and ``f_this``, timed other,
-    this, this, other."""
-    t = [chip_smoke.cuda_ms(torch, f, reps=reps)
-         for f in (f_other, f_this, f_this, f_other)]
+    this, this, other (by ``timer``, ``chip_smoke.cuda_ms`` by default)."""
+    timer = timer or chip_smoke.cuda_ms
+    t = [timer(torch, f, reps=reps) for f in (f_other, f_this, f_this, f_other)]
     return {"other": [t[0], t[3]], "this": [t[1], t[2]]}
 
 
@@ -162,10 +175,12 @@ def b1_cases(torch, dev, reps):
     return results
 
 
-def ab_case(torch, reps, name, tol, this_fn, other_fn, plain_fn, extra):
+def ab_case(torch, reps, name, tol, this_fn, other_fn, plain_fn, extra,
+            device=False):
     """One kernel case: this tree's kernel against the plain version and a
     second launch of itself, against the other tree's kernel, then timed in
-    turns; the plain version timed once."""
+    turns per call from Python and, with ``device``, again with the calls
+    queued (``chip_smoke.queued_ms``); the plain version timed once."""
     got, again = this_fn(), this_fn()
     want, old = plain_fn(), other_fn()
     torch.cuda.synchronize()
@@ -178,8 +193,124 @@ def ab_case(torch, reps, name, tol, this_fn, other_fn, plain_fn, extra):
            "err_vs_other": float((got - old).abs().max()),
            **turns(torch, reps, other_fn, this_fn),
            "plain": chip_smoke.cuda_ms(torch, plain_fn, reps=reps)}
+    if device:
+        row["device"] = turns(torch, reps, other_fn, this_fn,
+                              chip_smoke.queued_ms)
     chip_smoke.say(json.dumps(row))
     return row
+
+
+def b2_models(torch, dev):
+    """The flagship and a BatchNorm + max-pool + 'once' model (warmed
+    BatchNorm statistics) with 128 encoded samples each."""
+    from motionmixerconv_tpu_torch.models import ConvMixer
+    from motionmixerconv_tpu_torch.ops import conv_mixer
+
+    gb = torch.Generator().manual_seed(chip_smoke.SEED + 11)
+    x = (torch.randn(128, 10, 66, generator=gb) * 0.5).to(dev)
+    cfgs = {"flagship": chip_smoke.FLAGSHIP,
+            "bn+maxpool+once": dict(chip_smoke.FLAGSHIP, regularization=-1.0,
+                                    use_max_pooling=True, mode_conv="once")}
+    out = {}
+    with torch.no_grad():
+        for tag, cfg in cfgs.items():
+            model = chip_smoke.warm_batchnorm(
+                torch, ConvMixer(**cfg, generator=gb).eval(), gb).to(dev)
+            fused = conv_mixer.make_fused_conv_mixer(model)
+            out[tag] = (model, fused,
+                        fused.encoder(x)[..., 0].contiguous())
+    return out
+
+
+def b2_cases(torch, dev, reps):
+    """B2 at B = 1, 7, 32 and 128 for the flagship and the bn+maxpool+once
+    model, each tree packing the same model; then each tree's flagship
+    ``Predictor.predict`` at b = 1 and 32 on the host clock, in turns."""
+    from motionmixerconv_tpu_torch import serving
+    from motionmixerconv_tpu_torch.ops import conv_mixer as this
+
+    other = importlib.import_module("mmc_other.ops.conv_mixer")
+    results = []
+    models = b2_models(torch, dev)
+    with torch.no_grad():
+        for tag, (model, fused, y_all) in models.items():
+            spec, wts = fused.spec, fused.weights
+            o_spec, o_wts = other.pack_conv_mixer(model)
+            for b in B2_BATCHES:
+                y = y_all[:b].contiguous()
+                plan = this.b2_plan(spec, b)
+                results.append(ab_case(
+                    torch, reps, "B2", chip_smoke.TOL_B2,
+                    lambda: this.conv_mixer_fused(y, wts, spec),
+                    lambda: other.conv_mixer_fused(y, o_wts, o_spec),
+                    lambda: this.conv_mixer_plain(y, wts, spec),
+                    {"shape": tag, "batch": b, "plan": {
+                        "warps": plan.warps, "blocks": plan.blocks}},
+                    device=True))
+    model = models["flagship"][0]
+    # each tree's Predictor routes only its own model classes to a kernel
+    other_model = importlib.import_module("mmc_other.models").ConvMixer(
+        **chip_smoke.FLAGSHIP)
+    other_model.load_state_dict(model.state_dict(), strict=True)
+    this_p = serving.Predictor(model, device=dev)
+    other_p = importlib.import_module("mmc_other.serving").Predictor(
+        other_model, device=dev)
+    if this_p._fused is None or other_p._fused is None:
+        chip_smoke.fail("a tree's Predictor does not serve the flagship "
+                        "through B2")
+    gx = torch.Generator().manual_seed(chip_smoke.SEED + 13)
+    x = torch.randn(32, 10, 66, generator=gx) * 0.5
+    for b in (1, 32):
+        xb = x[:b].clone()
+        fns = {k: (lambda p=p: p.predict(xb).cpu())
+               for k, p in (("this", this_p), ("other", other_p))}
+        err = float((fns["this"]() - fns["other"]()).abs().max())
+        t = [chip_smoke.host_median_ms(fns[k], reps=200)
+             for k in ("other", "this", "this", "other")]
+        results.append({"kernel": "B2 serving", "what": "Predictor.predict",
+                        "batch": b, "err_vs_other": err,
+                        "other": [t[0], t[3]], "this": [t[1], t[2]]})
+        chip_smoke.say(json.dumps(results[-1]))
+    return results
+
+
+def b2_plans(torch, dev, reps):
+    """This tree's B2 under every warp count its kernel takes (1 to
+    min(T, 16), one block a sample), launched through the library with the
+    wrapper's arguments, at B = 1, 32 and 128 for the flagship and the
+    bn+maxpool+once model, each checked against the plain version: which
+    count ``b2_plan`` should pick."""
+    from motionmixerconv_tpu_torch.ops import _build, conv_mixer as this
+
+    lib = _build.load_library()
+    results = []
+    with torch.no_grad():
+        for tag, (_, fused, y_all) in b2_models(torch, dev).items():
+            spec, wts = fused.spec, fused.weights
+            chosen = this.b2_plan(spec, 1).warps
+            for b in (1, 32, 128):
+                y = y_all[:b].contiguous()
+                want = this.conv_mixer_plain(y, wts, spec)
+                out = torch.empty_like(want)
+
+                def launch(warps):
+                    _build.check(lib, lib.mmc_conv_mixer_fused(
+                        y.data_ptr(), wts.data_ptr(), out.data_ptr(), b,
+                        *spec.kernel_args(), warps, _build.stream_ptr(dev)),
+                        "conv_mixer_fused")
+                    return out
+
+                for w in range(1, min(spec.T, this.MAX_WARPS) + 1):
+                    err = float((launch(w) - want).abs().max())
+                    if not err <= chip_smoke.TOL_B2:
+                        chip_smoke.fail(f"B2 {tag} B={b} {w} warps: {err:.3e}")
+                    results.append({
+                        "kernel": "B2 plan", "shape": tag, "batch": b,
+                        "warps": w, "chosen": w == chosen,
+                        "ms": chip_smoke.queued_ms(
+                            torch, lambda: launch(w), reps=reps)})
+                    chip_smoke.say(json.dumps(results[-1]))
+    return results
 
 
 def b3_cases(torch, dev, reps):
@@ -284,7 +415,7 @@ def b4_cases(torch, dev, reps):
                 lambda: this.mlp_mixer_fused(xb, wts, spec),
                 lambda: other.mlp_mixer_fused(xb, o_wts, o_spec),
                 lambda: this.mlp_mixer_plain(xb, wts, spec),
-                {"shape": "amass", "batch": b}))
+                {"shape": "amass", "batch": b}, device=True))
     return results
 
 
@@ -292,16 +423,19 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", required=True, type=Path)
     ap.add_argument("--reps", type=int, default=20)
-    ap.add_argument("--kernels", default="B1,B3,B4",
-                    help="comma-separated kernels to time: B1, B3, B4")
+    ap.add_argument("--kernels", default="B1,B2,B3,B4",
+                    help="comma-separated kernels to time: B1, B2, B3, B4")
     ap.add_argument("--step-seeds", default="",
                     help="comma-separated seeds for the phase-8 replay")
+    ap.add_argument("--b2-plans", action="store_true",
+                    help="also time this tree's B2 under every warp count")
     ap.add_argument("--b3-plans", action="store_true",
                     help="also time this tree's B3 under every launch plan")
     args = ap.parse_args()
     kernels = {k for k in args.kernels.split(",") if k}
-    if not kernels <= {"B1", "B3", "B4"}:
-        chip_smoke.fail(f"unknown kernels {kernels - {'B1', 'B3', 'B4'}}")
+    known = {"B1", "B2", "B3", "B4"}
+    if not kernels <= known:
+        chip_smoke.fail(f"unknown kernels {kernels - known}")
 
     import torch
 
@@ -322,10 +456,14 @@ def main() -> None:
     results = []
     if "B1" in kernels:
         results += b1_cases(torch, dev, args.reps)
+    if "B2" in kernels:
+        results += b2_cases(torch, dev, args.reps)
     if "B3" in kernels:
         results += b3_cases(torch, dev, args.reps)
     if "B4" in kernels:
         results += b4_cases(torch, dev, args.reps)
+    if args.b2_plans:
+        results += b2_plans(torch, dev, args.reps)
     if args.b3_plans:
         results += b3_plans(torch, dev, args.reps)
     steps = []

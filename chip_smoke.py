@@ -6,11 +6,13 @@ against their plain PyTorch versions.
 
 Phases, one line each: [1] device and settings, [2] kernel build from
 ``motionmixerconv_tpu_torch/csrc``, [3] the fused ConvMixer core (B2)
-against its plain version, [4] the harmonic encoder forward (B1) against its
+against its plain version, 100 launches of each case bit-identical, each
+launch plan checked against the library and the card's shared memory, [4] the harmonic encoder forward (B1) against its
 plain version at 500, 1280 and 2560 rows, twice for bit-identity, with the
 wrapper's launch plans checked against the library, [5] the flagship H36M
 ConvMixer served end to end over HTTP (launch counts reset just before and
-read just after), [6] serving times, [7] the harmonic encoder backward
+read just after), [6] serving times and B2's at 1, 7, 32 and 128 samples,
+[7] the harmonic encoder backward
 (B1-bwd) against its plain version, twice for bit-identity, [8] one flagship
 training step with the fused encoder and with the plain one, each float32
 gradient held to a float64 step of the same weights and inputs, [9] the training
@@ -31,7 +33,7 @@ training times, [14] the
 fused MlpMixer forward (B4) against its plain version at the AMASS default,
 a BatchNorm + max-pool, a channel-only, a token-only, a long-window
 (activations in device scratch) and a wide shape (weights read in place),
-twice for bit-identity, [15] the AMASS training CLI (2 epochs at its default
+100 launches of each case bit-identical, [15] the AMASS training CLI (2 epochs at its default
 widths on a synthetic corpus), its ``train_state.pt`` served through B4 in
 process and over HTTP with ``--arch auto`` (launch counts reset just before
 the CLI and read just after the serving), [16] B4, serving and AMASS
@@ -88,6 +90,7 @@ TRAIN_BATCH = 50
 CORPUS_FRAMES = 400  # frames per synthetic H36M sequence (~24,900 train windows)
 TRAIN_ARGV = ["--loss_type", "mpjpe"]  # the training CLI at its defaults
 B2_BATCHES = (1, 7, 32, 128)
+B2_REPEATS = 100  # launches of each B2 case that must all equal the first
 TOL_B3 = 1e-4    # f32, the convolutions' C*kh*kw-term sums in different orders
 B3_BATCHES = (1, 7, 32, 128)
 B3_REPEATS = 100  # launches of each B3 case that must all equal the first
@@ -98,6 +101,7 @@ AR_ARGV = ["--loss_type", "mpjpe", "--n_epochs", "2",
 BULK_ROWS = 256
 TOL_B4 = 1e-4    # f32, the MLPs' sums (up to 128 terms) in different orders
 B4_BATCHES = (1, 7, 32, 128)
+B4_REPEATS = 100  # launches of each B4 case that must all equal the first
 # the AMASS CLI's synthetic corpus: every AMASS_SPLITS directory, 3 subjects
 # x 4 recordings of 600 frames at 50 fps (~25,500 train windows at skip 1)
 AMASS_CORPUS = dict(n_subjects=3, n_acts=4, n_frames=600)
@@ -193,6 +197,29 @@ def cuda_ms(torch, fn, reps: int = 50, trials: int = 7) -> float:
     for _ in range(trials):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return statistics.median(times)
+
+
+def queued_ms(torch, fn, reps: int = 50, trials: int = 7) -> float:
+    """Median over trials of the CUDA-event time per call of ``fn``, with
+    the calls enqueued while the stream is held by a spin kernel: the
+    events then time the launches back to back on the device, not the
+    host's pace of enqueueing them (which bounds ``cuda_ms`` for a kernel
+    shorter than its Python call)."""
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(trials):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(reps * 200_000)  # ~0.1 ms a call to enqueue it
         start.record()
         for _ in range(reps):
             fn()
@@ -472,11 +499,12 @@ def b4_launch(spec, b):
     """B4's launch for b samples: one 512-thread block a sample
     (csrc/mlp_mixer_fused.cu kThreads), with the placements the wrapper
     chose for the shape."""
-    wbuf = spec.wbuf_floats()
+    wbuf, nbuf = spec.wbuf_floats(), spec.nbufs()
     return (f"{b} blocks x 512 thr, activations in "
             f"{'scratch' if spec.uses_scratch else 'shared memory'}, weights "
-            f"{f'staged through {wbuf} floats' if wbuf else 'read in place'}, "
-            f"{spec.smem_bytes()} B smem")
+            + (f"copied by TMA into {nbuf} buffer(s) of {wbuf} floats"
+               if nbuf else "read in place")
+            + f", {spec.smem_bytes()} B smem")
 
 
 def b4_work(spec, batch: int, n_weights: int):
@@ -629,7 +657,13 @@ def main() -> None:
     say(f"[2 build] {build_s:.2f} s ({'built' if _build.build_log else 'cached'})"
         f" | ptxas: {' ; '.join(ptxas) or 'n/a'}")
 
-    # [3] B2 against its plain version at the flagship shape
+    # [3] B2 against its plain version at the flagship shape and the
+    # bn+maxpool+once model, B2_REPEATS launches of each case bit-identical;
+    # each case's launch plan against the library and the card's shared
+    # memory
+    lib = _build.load_library()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    card_smem = lib.mmc_conv_mixer_card_smem()
     gen = torch.Generator().manual_seed(SEED)
     flag = ConvMixer(**FLAGSHIP, generator=gen).eval().to(dev)
     x_all = (torch.randn(BULK_ROWS, 10, 66, generator=gen) * 0.5).to(dev)
@@ -638,24 +672,50 @@ def main() -> None:
     bn_model = warm_batchnorm(torch, ConvMixer(**bn_cfg, generator=gen).eval(),
                               gen).to(dev)
     b2_err = 0.0
-    parts = []
+    parts, b2_plans = [], []
     with torch.no_grad():
         for tag, model, batches in (("flagship", flag, B2_BATCHES),
                                     ("bn+maxpool+once", bn_model, (7, 128))):
             fused = conv_mixer.make_fused_conv_mixer(model)
+            spec = fused.spec
+            dims = (spec.T, spec.E, spec.P, spec.D, spec.H, spec.num_blocks,
+                    *spec.k1, *spec.k2)
+            if lib.mmc_conv_mixer_weights_numel(*dims) != spec.numel():
+                fail(f"B2 {tag}: the kernel's weight layout disagrees with "
+                     "ops/conv_mixer.py")
             y_all = fused.encoder(x_all[:128])[..., 0].contiguous()
             for b in batches:
+                plan = conv_mixer.b2_plan(spec, b)
+                fit = lib.mmc_conv_mixer_resident_blocks(plan.threads, plan.smem)
+                lib_smem = lib.mmc_conv_mixer_smem_bytes(*dims)
+                if lib_smem != plan.smem or not plan.smem <= card_smem \
+                        or fit < 1:
+                    fail(f"B2 {tag} B={b}: {plan} against the library's "
+                         f"{lib_smem} B, the card's {card_smem} B, {fit} "
+                         "resident")
+                b2_plans.append(f"{tag} B={b} {plan.blocks} blocks x "
+                                f"{plan.warps} warps, {plan.smem} B smem, "
+                                f"{fit} resident")
                 y = y_all[:b].contiguous()
-                got = conv_mixer.conv_mixer_fused(y, fused.weights, fused.spec)
-                want = conv_mixer.conv_mixer_plain(y, fused.weights, fused.spec)
+                got = conv_mixer.conv_mixer_fused(y, fused.weights, spec)
+                again = [conv_mixer.conv_mixer_fused(y, fused.weights, spec)
+                         for _ in range(B2_REPEATS - 1)]
+                want = conv_mixer.conv_mixer_plain(y, fused.weights, spec)
                 torch.cuda.synchronize()
                 if not torch.isfinite(got).all():
                     fail(f"B2 {tag} B={b}: non-finite output")
+                differ = sum(not torch.equal(got, a) for a in again)
+                if differ:
+                    fail(f"B2 {tag} B={b} {plan}: {differ} of "
+                         f"{B2_REPEATS - 1} launches differ from the first")
                 err = float((got - want).abs().max())
                 b2_err = max(b2_err, err)
                 parts.append(f"{tag} B={b} {err:.3e}")
     say(f"[3 B2 conv_mixer_fused vs plain] max_abs_err {b2_err:.3e} "
-        f"(tol {TOL_B2:g}) | " + " ; ".join(parts))
+        f"(tol {TOL_B2:g}), {B2_REPEATS} launches of each case "
+        "bit-identical | " + " ; ".join(parts) + f" | {sms} SMs, the card's "
+        f"shared memory a block {card_smem} B; plans (library agrees): "
+        + " ; ".join(b2_plans))
     if not b2_err <= TOL_B2:
         fail(f"B2 disagrees with its plain version: {b2_err:.3e} > {TOL_B2:g}")
 
@@ -770,12 +830,16 @@ def main() -> None:
         fused = predictor._fused
         spec, wts = fused.spec, fused.weights
         b2 = {}
-        for b in (1, 32, 128):
+        for b in B2_BATCHES:
             y = fused.encoder(x_all[:b])[..., 0].contiguous()
             b2[b] = (
+                queued_ms(torch, lambda: conv_mixer.conv_mixer_fused(y, wts, spec)),
                 cuda_ms(torch, lambda: conv_mixer.conv_mixer_fused(y, wts, spec)),
                 cuda_ms(torch, lambda: conv_mixer.conv_mixer_plain(y, wts, spec)),
                 host_ms(torch, lambda: conv_mixer.conv_mixer_fused(y, wts, spec)),
+                bound(*b2_work(spec, b, wts.numel())),
+                device_us(torch, lambda: conv_mixer.conv_mixer_fused(
+                    y, wts, spec), "conv_mixer_fused_kernel"),
             )
         rows = BULK_ROWS * 10
         x2d = x_all.reshape(-1, 66)[:rows].contiguous()
@@ -787,21 +851,21 @@ def main() -> None:
                 cuda_ms(torch, lambda: harmonic.harmonic_dense_plain(
                     x2d, w, bias, freqs, impl), reps=10),
             )
-        y = fused.encoder(x_all[:128])[..., 0].contiguous()
         dev_us = {
-            "B2 B=128": device_us(torch, lambda: conv_mixer.conv_mixer_fused(
-                y, wts, spec), "conv_mixer_fused_kernel"),
             **{f"B1 {i} R={rows} {k}": device_us(
                 torch, lambda: harmonic.harmonic_dense_fwd(x2d, w, bias, freqs, i, wi),
                 k, reps=5)
                for i in harmonic.IMPLS for k in B1_FWD_KERNELS},
         }
-    nb2, ob2 = b2_work(spec, 128, wts.numel())
-    bound_b2, by_b2 = bound(nb2, ob2)
+    bound_b2, by_b2 = b2[128][4]
     nb1, ob1 = b1_work(rows, 66, 64, 50, "direct")
     bound_b1, by_b1 = bound(nb1, ob1)
-    say(f"[6 times] {card} | B2 conv_mixer_fused kernel/plain/host-enqueue ms: "
-        + " ; ".join(f"B={b} {k:.4f}/{p:.4f}/{h:.4f}" for b, (k, p, h) in b2.items())
+    say(f"[6 times] {card} | B2 conv_mixer_fused ms: per call from Python "
+        "(events) / device (events over calls queued behind a spin kernel) "
+        "/ plain / host enqueue (bound ms, by; profiler device us/launch): "
+        + " ; ".join(f"B={b} {k:.4f}/{q:.4f}/{p:.4f}/{h:.4f} ({bd[0]:.6f}, "
+                     f"{bd[1]}; {'not measured' if us is None else f'{us:.2f}'})"
+                     for b, (q, k, p, h, bd, us) in b2.items())
         + f" | B1 harmonic_dense_fwd R={rows} kernel/plain ms: "
         + " ; ".join(f"{i} {k:.4f}/{p:.4f}" for i, (k, p) in b1.items())
         + " | profiler device us/launch: " + " ; ".join(
@@ -812,8 +876,7 @@ def main() -> None:
         + f" | BatchingPredictor.predict latency ms: b=1 {bat_lat[1]:.3f} ; "
           f"b=32 {bat_lat[32]:.3f}"
         + f" | HTTP /predict latency ms: b=1 {lat[1]:.3f} ; b=32 {lat[32]:.3f}"
-        + f" | bound ms: B2 B=128 {bound_b2:.6f} ({by_b2}), "
-          f"B1 R={rows} {bound_b1:.6f} ({by_b1})")
+        + f" | bound ms: B1 R={rows} {bound_b1:.6f} ({by_b1})")
 
     # [7] B1-bwd against its plain version, twice for bit-identity
     gg = torch.Generator().manual_seed(SEED + 3)
@@ -1240,7 +1303,7 @@ def main() -> None:
         f"(batch {TRAIN_BATCH}): {ar_prof}")
 
     # [14] B4 against its plain version at the AMASS default and the
-    # variants it takes, twice for bit-identity
+    # variants it takes, B4_REPEATS launches of each case bit-identical
     gm = torch.Generator().manual_seed(SEED + 9)
     b4_err, parts, b4_fused, b4_plans = 0.0, [], {}, []
     with torch.no_grad():
@@ -1260,20 +1323,24 @@ def main() -> None:
             for b in batches:
                 xb = x_m[:b].contiguous()
                 got = mlp_mixer.mlp_mixer_fused(xb, fused.weights, spec)
-                again = mlp_mixer.mlp_mixer_fused(xb, fused.weights, spec)
+                again = [mlp_mixer.mlp_mixer_fused(xb, fused.weights, spec)
+                         for _ in range(B4_REPEATS - 1)]
                 want = mlp_mixer.mlp_mixer_plain(xb, fused.weights, spec)
                 module = model(xb)
                 torch.cuda.synchronize()
                 if not torch.isfinite(got).all():
                     fail(f"B4 {tag} B={b}: non-finite output")
-                if not torch.equal(got, again):
-                    fail(f"B4 {tag} B={b}: two launches differ")
+                differ = sum(not torch.equal(got, a) for a in again)
+                if differ:
+                    fail(f"B4 {tag} B={b}: {differ} of {B4_REPEATS - 1} "
+                         "launches differ from the first")
                 err = float((got - want).abs().max())
                 b4_err = max(b4_err, err)
                 parts.append(f"{tag} B={b} {err:.3e} (module "
                              f"{float((got - module).abs().max()):.1e})")
     say(f"[14 B4 mlp_mixer_fused vs plain] max_abs_err {b4_err:.3e} (tol "
-        f"{TOL_B4:g}), second launch bit-identical, activations in scratch "
+        f"{TOL_B4:g}), {B4_REPEATS} launches of each case bit-identical, "
+        "activations in scratch "
         "(long_window) and weights read in place (wide) as the wrapper "
         "placed them | " + " ; ".join(parts)
         + " | launch per shape at its largest batch: " + " ; ".join(b4_plans))
@@ -1366,7 +1433,8 @@ def main() -> None:
             b4_t[b] = (
                 cuda_ms(torch, lambda: mlp_mixer.mlp_mixer_fused(xb, wts, spec)),
                 cuda_ms(torch, lambda: mlp_mixer.mlp_mixer_plain(xb, wts, spec)),
-                bound(*b4_work(spec, b, n_model)))
+                bound(*b4_work(spec, b, n_model)),
+                queued_ms(torch, lambda: mlp_mixer.mlp_mixer_fused(xb, wts, spec)))
             b4_dev[b] = device_us(
                 torch, lambda: mlp_mixer.mlp_mixer_fused(xb, wts, spec),
                 "mlp_mixer_kernel")
@@ -1391,10 +1459,10 @@ def main() -> None:
         loss_scale=1000.0), SEED + 10, width=156, scale=0.3,
         batch=am_args.batch_size))
     del model
-    say(f"[16 AMASS times] {card} | B4 mlp_mixer_fused kernel/plain ms (bound "
-        "ms, by): " + " ; ".join(
-            f"B={b} {k:.4f}/{p:.4f} ({bd[0]:.5f}, {bd[1]})"
-            for b, (k, p, bd) in b4_t.items())
+    say(f"[16 AMASS times] {card} | B4 mlp_mixer_fused ms: per call from "
+        "Python / device (calls queued) / plain (bound ms, by): " + " ; ".join(
+            f"B={b} {k:.4f}/{q:.4f}/{p:.4f} ({bd[0]:.5f}, {bd[1]})"
+            for b, (k, p, bd, q) in b4_t.items())
         + " | launches: " + " ; ".join(
             f"B={b} {b4_launch(b4_spec, b)}" for b in b4_t)
         + " | profiler device us/launch: " + " ; ".join(
@@ -1418,8 +1486,11 @@ def main() -> None:
          "source": "motionmixerconv_tpu_torch/csrc/conv_mixer_fused.cu",
          "replaces": "motionmixerconv_tpu/ops/pallas_conv_mixer.py:579",
          "launches": launches["conv_mixer_fused"], "max_abs_err": b2_err,
-         "ms": b2[128][0], "plain_ms": b2[128][1], "bound_ms": bound_b2,
-         "bound_by": by_b2, "library_ms": None},
+         "ms": b2[128][1], "plain_ms": b2[128][2], "bound_ms": bound_b2,
+         "bound_by": by_b2, "library_ms": None, "device_ms": b2[128][0],
+         "by_batch": {str(b): {"ms": k, "device_ms": q, "plain_ms": p,
+                               "bound_ms": bd[0], "device_us": us}
+                      for b, (q, k, p, h, bd, us) in b2.items()}},
         {"name": "harmonic_dense_fwd", "route": "cuda",
          "source": "motionmixerconv_tpu_torch/csrc/harmonic_dense.cu",
          "replaces": "motionmixerconv_tpu/ops/pallas_harmonic.py:54",
@@ -1481,10 +1552,10 @@ def main() -> None:
          "launches": am_launches["mlp_mixer_fused"], "max_abs_err": b4_err,
          "ms": b4_t[128][0], "plain_ms": b4_t[128][1],
          "bound_ms": b4_t[128][2][0], "bound_by": b4_t[128][2][1],
-         "library_ms": None,
-         "by_batch": {str(b): {"ms": k, "plain_ms": p, "bound_ms": bd[0],
-                               "device_us": b4_dev[b]}
-                      for b, (k, p, bd) in b4_t.items()}},
+         "library_ms": None, "device_ms": b4_t[128][3],
+         "by_batch": {str(b): {"ms": k, "device_ms": q, "plain_ms": p,
+                               "bound_ms": bd[0], "device_us": b4_dev[b]}
+                      for b, (k, p, bd, q) in b4_t.items()}},
     ]
     for k in kernels:
         k["launches_by_path"] = {"serve": launches.get(k["name"], 0),

@@ -113,7 +113,11 @@ def _declare(lib) -> None:
     lib.mmc_conv_mixer_weights_numel.restype = L
     lib.mmc_conv_mixer_smem_bytes.argtypes = [i] * 10
     lib.mmc_conv_mixer_smem_bytes.restype = L
-    lib.mmc_conv_mixer_fused.argtypes = [p, p, p] + [i] * 15 + [p]
+    lib.mmc_conv_mixer_card_smem.argtypes = []
+    lib.mmc_conv_mixer_card_smem.restype = i
+    lib.mmc_conv_mixer_resident_blocks.argtypes = [i, L]
+    lib.mmc_conv_mixer_resident_blocks.restype = i
+    lib.mmc_conv_mixer_fused.argtypes = [p, p, p] + [i] * 16 + [p]
     lib.mmc_conv_mixer_fused.restype = i
     lib.mmc_conv_mixer_mc_weights_numel.argtypes = [i] * 11
     lib.mmc_conv_mixer_mc_weights_numel.restype = L
@@ -123,7 +127,7 @@ def _declare(lib) -> None:
     lib.mmc_conv_mixer_mc_max_clusters.restype = i
     lib.mmc_conv_mixer_mc.argtypes = [p, p, p] + [i] * 19 + [p]
     lib.mmc_conv_mixer_mc.restype = i
-    lib.mmc_mlp_mixer.argtypes = [p] * 4 + [i] * 18 + [p]
+    lib.mmc_mlp_mixer.argtypes = [p] * 4 + [i] * 19 + [p]
     lib.mmc_mlp_mixer.restype = i
     for name in ("fwd_rows", "fwd_max_cols", "dw_rows", "dx_rows"):
         getattr(lib, f"mmc_harmonic_{name}").argtypes = []

@@ -8,11 +8,15 @@ kernel in plain torch; everything after it is one launch of
 ``csrc/conv_mixer_fused.cu``. ``conv_mixer_plain`` computes the same function
 from the same packed weights; ``conv_mixer_fused`` uses it only for a tensor
 on the CPU. Inference only.
+
+The launch shape, one block a sample and how many warps it gets, is
+``b2_plan``'s alone (plain Python, tested on the CPU).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import lru_cache
 from typing import Dict, List, Tuple
 
 import torch
@@ -61,15 +65,47 @@ class ConvMixerSpec:
         return (self.num_blocks * sum(n for _, n in block)
                 + sum(n for _, n in glob))
 
+    def sample_floats(self) -> int:
+        """A sample's shared floats: the LayerNorm output (T, E); the
+        residual stream and the branch output (T, E) each, whose space the
+        decoder's (P, E) plane takes over; the SE squeeze, double-buffered."""
+        te = self.T * self.E
+        return te + max(2 * te, self.P * self.E) + 2 * self.T
+
     def smem_bytes(self) -> int:
-        return 4 * (self.numel() + 3 * self.T * self.E + 2 * self.T
-                    + max(self.H, 1) + self.P * self.E)
+        """Dynamic shared memory of a block: the packed weights and one
+        sample's planes."""
+        return 4 * (self.numel() + self.sample_floats())
 
     def kernel_args(self) -> List[int]:
         return [self.T, self.E, self.P, self.D, self.H, self.num_blocks,
                 self.k1[0], self.k1[1], self.k2[0], self.k2[1],
                 int(self.twice), int(self.use_se), int(self.use_max),
                 {"gelu": 0, "mish": 1}[self.activation]]
+
+
+MAX_WARPS = 16  # warps a block may have (csrc/conv_mixer_fused.cu kMaxWarps)
+
+
+@dataclass(frozen=True)
+class B2Plan:
+    """B2's launch: one block a sample, ``warps`` warps a block (warp i owns
+    the sample's time rows i, i + warps, ...)."""
+
+    warps: int
+    blocks: int
+    threads: int
+    smem: int
+
+
+@lru_cache(maxsize=256)
+def b2_plan(spec: ConvMixerSpec, batch: int) -> B2Plan:
+    """The launch of ``batch`` samples: one block a sample, with as many
+    warps as the sample has time rows, up to a block's 16. Cached, as the
+    serving path asks for it on every call."""
+    warps = min(spec.T, MAX_WARPS)
+    return B2Plan(warps=warps, blocks=batch, threads=32 * warps,
+                  smem=spec.smem_bytes())
 
 
 def _unpack(flat: torch.Tensor, spec: ConvMixerSpec
@@ -260,7 +296,8 @@ def check_inputs(what: str, y: torch.Tensor, flat: torch.Tensor, spec,
 def conv_mixer_fused(y: torch.Tensor, flat: torch.Tensor,
                      spec: ConvMixerSpec) -> torch.Tensor:
     """(B, T, E) encoder output -> (B, P, D): the CUDA kernel for a CUDA
-    tensor, the plain version for a CPU tensor, an error otherwise."""
+    tensor (launched as ``b2_plan`` says), the plain version for a CPU
+    tensor, an error otherwise."""
     check_inputs("conv_mixer_fused", y, flat, spec, (spec.T, spec.E))
     if y.device.type == "cpu":
         PLAIN_CALLS.add()
@@ -269,11 +306,12 @@ def conv_mixer_fused(y: torch.Tensor, flat: torch.Tensor,
     out = torch.empty((B, spec.P, spec.D), device=y.device, dtype=torch.float32)
     if B == 0:
         return out
+    plan = b2_plan(spec, B)
     lib = load_library()
     with torch.cuda.device(y.device):
         err = lib.mmc_conv_mixer_fused(
             y.data_ptr(), flat.data_ptr(), out.data_ptr(), B,
-            *spec.kernel_args(), stream_ptr(y.device))
+            *spec.kernel_args(), plan.warps, stream_ptr(y.device))
     check(lib, err, "conv_mixer_fused")
     LAUNCHES.add()
     return out

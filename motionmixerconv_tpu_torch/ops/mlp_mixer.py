@@ -14,10 +14,13 @@ only for a tensor on the CPU. Inference only (dropout is inactive).
 
 Domain: every width and window length. A sample's activations live in
 shared memory where they fit and in a device scratch buffer otherwise
-(``MlpMixerSpec.uses_scratch``); each weight matrix is staged through
-shared memory where it fits beside them (``wbuf_floats``). The spec alone
-decides that placement and passes it to the kernel. Sizes whose indices
-overflow 32 bits raise NotImplementedError.
+(``MlpMixerSpec.uses_scratch``); the weight matrices are copied into two
+shared buffers in turn (the next while the current is used), or one, where
+they fit beside them (``nbufs``, ``wbuf_floats``), and are read in place
+otherwise. The spec alone decides that placement and passes it to the
+kernel. Every piece of the packed buffer starts at a 16-byte boundary (the
+kernel's bulk copies need it). Sizes whose indices overflow 32 bits raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -37,6 +40,15 @@ PLAIN_CALLS = Counter()  # calls served by the plain version (CPU tensors)
 
 BLOCK_TYPES = {"normal": 0, "channel_only": 1, "token_only": 2}
 _INT_MAX = 2**31 - 1
+# a sample's room for the split-K partial tiles (csrc/mlp_mixer_fused.cu
+# `pick` splits K only where they fit)
+PART_FLOATS = 12288
+MBAR_FLOATS = 4  # the kernel's two mbarriers at the start of shared memory
+
+
+def pad4(n: int) -> int:
+    """``n`` rounded up to a multiple of 4 floats (16 bytes)."""
+    return -(-n // 4) * 4
 
 
 @dataclass(frozen=True)
@@ -68,7 +80,8 @@ class MlpMixerSpec:
     def layout(self) -> Tuple[List[Tuple[str, int]], List[Tuple[str, int]],
                               List[Tuple[str, int]]]:
         """(embed, per-block, head) pieces of the flat weight buffer, in
-        order; ``csrc/mlp_mixer_fused.cu`` reads the same layout. Matrices
+        order, with their true sizes; each takes ``pad4`` of its size in the
+        buffer. ``csrc/mlp_mixer_fused.cu`` reads the same layout. Matrices
         are (in, out), row major; planes are (T, H)."""
         T, D, H, P, NC, S = self.T, self.D, self.H, self.P, self.NC, self.S
         tok, ch = self.tok, self.ch
@@ -89,55 +102,67 @@ class MlpMixerSpec:
 
     def numel(self) -> int:
         embed, block, head = self.layout()
-        return (sum(n for _, n in embed) + self.num_blocks
-                * sum(n for _, n in block) + sum(n for _, n in head))
+        return (sum(pad4(n) for _, n in embed) + self.num_blocks
+                * sum(pad4(n) for _, n in block)
+                + sum(pad4(n) for _, n in head))
 
     def sample_floats(self) -> int:
-        """A sample's working set: the SE squeeze and gate (T each) and SE
-        hidden, the residual stream and the LN/branch plane (T, H) each, one
-        buffer for the MLP hiddens and the time upsample."""
+        """A sample's working set: the SE squeeze (T), the residual stream
+        and the LN/branch plane (T, H) each, one buffer for the MLP hiddens
+        and the time upsample, the split-K partials; each piece padded to
+        16 bytes."""
         T, H = self.T, self.H
         buf = max(self.H * self.tok if self.has_tok else 0,
                   T * self.ch if self.has_ch else 0, self.P * H)
-        return 2 * T * H + buf + 2 * T + max(self.S, 1)
+        return pad4(T) + 2 * pad4(T * H) + pad4(buf) + PART_FLOATS
 
     @property
     def uses_scratch(self) -> bool:
         """The activations outgrow one block's shared memory and live in a
         device buffer of ``sample_floats`` per sample instead."""
-        return 4 * self.sample_floats() > MAX_SMEM_BYTES
+        return 4 * (MBAR_FLOATS + self.sample_floats()) > MAX_SMEM_BYTES
 
     def act_smem_floats(self) -> int:
-        """The activations' share of shared memory, rounded up to 16 bytes
-        (0 when they live in scratch)."""
-        return 0 if self.uses_scratch else -(-self.sample_floats() // 4) * 4
+        """The activations' share of shared memory (0 when they live in
+        scratch)."""
+        return 0 if self.uses_scratch else self.sample_floats()
 
     def wbuf_floats(self) -> int:
-        """The shared buffer each weight matrix is staged through: the
-        largest matrix plus 3 floats (a matrix sits at its own 16-byte
-        phase), when that fits beside the activations; else 0 (every matrix
+        """One shared buffer a weight matrix is copied into: the largest
+        matrix, when one fits beside the activations; else 0 (every matrix
         read in place)."""
         T, D, H, P, NC = self.T, self.D, self.H, self.P, self.NC
-        n = 3 + max(D * H, T * P, H * NC,
-                    T * self.tok if self.has_tok else 0,
-                    H * self.ch if self.has_ch else 0)
-        return n if 4 * (self.act_smem_floats() + n) <= MAX_SMEM_BYTES else 0
+        n = pad4(max(D * H, T * P, H * NC,
+                      T * self.tok if self.has_tok else 0,
+                      H * self.ch if self.has_ch else 0))
+        fits = 4 * (MBAR_FLOATS + self.act_smem_floats() + n) <= MAX_SMEM_BYTES
+        return n if fits else 0
+
+    def nbufs(self) -> int:
+        """Shared weight buffers: 2 where they fit (each matrix is copied
+        while the one before it is used), else 1 or 0."""
+        n = self.wbuf_floats()
+        if n and 4 * (MBAR_FLOATS + self.act_smem_floats() + 2 * n) \
+                <= MAX_SMEM_BYTES:
+            return 2
+        return 1 if n else 0
 
     def smem_bytes(self) -> int:
-        """Dynamic shared memory per block: the activations (unless in
-        scratch) and the weight buffer."""
-        return 4 * (self.act_smem_floats() + self.wbuf_floats())
+        """Dynamic shared memory per block: the mbarriers, the activations
+        (unless in scratch) and the weight buffers."""
+        return 4 * (MBAR_FLOATS + self.act_smem_floats()
+                    + self.nbufs() * self.wbuf_floats())
 
     def kernel_args(self) -> List[int]:
         """The kernel's shapes and switches, then its placement: a sample's
-        working set, whether it lives in scratch, and the weight buffer's
-        offset and size in shared memory (floats)."""
+        working set, whether it lives in scratch, the partials' share of
+        it, the weight buffers and their size (floats)."""
         return [self.T, self.D, self.H, self.P, self.NC, self.tok, self.ch,
                 self.S, self.num_blocks, BLOCK_TYPES[self.block_type],
                 int(self.use_se), int(self.use_max),
                 {"gelu": 0, "mish": 1}[self.activation],
-                self.sample_floats(), int(self.uses_scratch),
-                self.act_smem_floats(), self.wbuf_floats()]
+                self.sample_floats(), int(self.uses_scratch), PART_FLOATS,
+                self.nbufs(), self.wbuf_floats()]
 
 
 def _unpack(flat: torch.Tensor, spec: MlpMixerSpec
@@ -151,7 +176,7 @@ def _unpack(flat: torch.Tensor, spec: MlpMixerSpec
         d = {}
         for name, n in pieces:
             d[name] = flat[off: off + n]
-            off += n
+            off += pad4(n)
         return d
 
     e = take(embed)
@@ -222,8 +247,12 @@ def pack_mlp_mixer(model) -> Tuple[MlpMixerSpec, torch.Tensor]:
                    model.fc_out.weight.t(),  # (H, NC)
                    model.fc_out.bias]
         device = model.fc_out.weight.device
-        flat = torch.cat([p.detach().to(device=device, dtype=torch.float32)
-                          .reshape(-1) for p in pieces]).contiguous()
+        flat = []
+        for p in pieces:  # each piece at a 16-byte boundary
+            v = p.detach().to(device=device, dtype=torch.float32).reshape(-1)
+            flat += [v, torch.zeros(pad4(v.numel()) - v.numel(),
+                                    device=device)]
+        flat = torch.cat(flat).contiguous()
     if flat.numel() != spec.numel():
         raise AssertionError("packed weights disagree with the layout")
     return spec, flat
@@ -292,6 +321,9 @@ def mlp_mixer_fused(x: torch.Tensor, flat: torch.Tensor,
                            dtype=torch.float32)
                if spec.uses_scratch else None)
     lib = load_library()
+    if flat.data_ptr() % 16:
+        raise ValueError("the packed weights must start at a 16-byte "
+                         "boundary (the kernel copies them in bulk)")
     with torch.cuda.device(x.device):
         err = lib.mmc_mlp_mixer(
             x.data_ptr(), flat.data_ptr(), out.data_ptr(),

@@ -288,21 +288,23 @@ def test_b4_activations_move_to_device_memory_when_they_outgrow_smem():
     amass = mlp_mixer.FusedMlpMixer(MlpMixer(**_cfg(
         hidden_dim=128, tokens_mlp_dim=20, channels_mlp_dim=128,
         num_classes=54, input_size=54, r_se=8, num_blocks=1)))
-    # y and z (T, H), the (P, H) upsample buffer, SE squeeze, gate, hidden
-    # (rounded up to 16 bytes); then the weight buffer for the largest
-    # matrix, channel fc1 (128, 128), plus 3 floats of 16-byte phase
-    act = 2 * 10 * 128 + 25 * 128 + 20 + 1
+    # the SE squeeze (T, padded to 16 bytes), y and z (T, H), the (P, H)
+    # upsample buffer, the split-K partials; then two weight buffers for
+    # the largest matrix, channel fc1 (128, 128), after the two mbarriers
+    act = 12 + 2 * 10 * 128 + 25 * 128 + mlp_mixer.PART_FLOATS
     assert amass.spec.sample_floats() == act
-    assert amass.spec.wbuf_floats() == 128 * 128 + 3
-    assert amass.spec.smem_bytes() == 4 * (act + 3 + 128 * 128 + 3)
+    assert amass.spec.wbuf_floats() == 128 * 128
+    assert amass.spec.nbufs() == 2
+    assert amass.spec.smem_bytes() == 4 * (4 + act + 2 * 128 * 128)
     assert not amass.spec.uses_scratch
     cfg = _cfg(seq_len=240, pred_len=40, num_blocks=1, hidden_dim=128,
                tokens_mlp_dim=16, channels_mlp_dim=16)
     model = MlpMixer(**cfg, generator=torch.Generator().manual_seed(1)).eval()
     fused = mlp_mixer.FusedMlpMixer(model)
     assert fused.spec.uses_scratch
-    # only the weight buffer: the largest matrix, the (T, P) time upsample
-    assert fused.spec.smem_bytes() == 4 * (240 * 40 + 3)
+    # only the mbarriers and the weight buffers: the largest matrix, the
+    # (T, P) time upsample, twice
+    assert fused.spec.smem_bytes() == 4 * (4 + 2 * 240 * 40)
     x = torch.randn(2, 240, 66) * 0.5
     with torch.no_grad():
         torch.testing.assert_close(fused(x), model(x), rtol=0, atol=2e-5)

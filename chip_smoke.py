@@ -16,28 +16,39 @@ read just after), [6] serving times and B2's at 1, 7, 32 and 128 samples,
 (B1-bwd) against its plain version, twice for bit-identity, [8] one flagship
 training step with the fused encoder and with the plain one, each float32
 gradient held to a float64 step of the same weights and inputs, [9] the training
-CLI (``--loss_type mpjpe --fused_encoder``, 2 epochs at the defaults) on a
-synthetic H36M corpus, its checkpoint served through B2 (launch counts reset
-just before and read just after), [10] training times, B1-fwd and B1-bwd
-times at 500 and 2560 rows with the profiler's device time of each of their
-kernels and cuBLAS's f32 products on a precomputed embedding as yardsticks,
+CLI (``--loss_type mpjpe --fused_encoder --epochs_per_dispatch 2``, 2 epochs
+at the defaults as one chunk, every step and evaluation batch a replay of a
+captured CUDA graph) on a synthetic H36M corpus, B1's device launches in
+that run counted from profiler traces of each of its training and
+evaluation calls (at least one of each a train step), the history held to
+the same run in chunks of one epoch, its checkpoint served through B2 (launch
+counts reset just before and read just after), [10] training times, B1-fwd
+and B1-bwd times at 500 and 2560 rows with the profiler's device time of
+each of their kernels and cuBLAS's f32 products on a precomputed embedding
+as yardsticks, the direct trainer's graph path held to its eager path
+(``scan=False``) step by step from one init, dropout masks drawn anew by
+each replay, and both paths' samples/s, step ms, kernels a step and idle
+share,
 [11] the multi-channel ConvMixer core (B3) against its plain version at the
 autoregressive and study shapes and two wider ones that only its clusters
 take, twice for bit-identity, each launch plan checked against the library,
 and its times at 1, 7, 32 and 128 samples, [12] the
-autoregressive training CLI (``--loss_type mpjpe``, one teacher-forcing and
-one closed-loop epoch at the default widths), its ``train_state.pt`` rebuilt
-and served through B3 in process and over HTTP (launch counts reset just
-before and read just after) and the served latency, [13] autoregressive
-training times, [14] the
+autoregressive training CLI (``--loss_type mpjpe --epochs_per_dispatch 2``,
+one teacher-forcing and one closed-loop epoch at the default widths, a
+chunk each), its history held to chunks of one epoch, its ``train_state.pt``
+rebuilt and served through B3 in process and over HTTP (launch counts reset
+just before and read just after) and the served latency, [13]
+autoregressive training times and its teacher-forcing and closed-loop
+graphs held to the eager steps, [14] the
 fused MlpMixer forward (B4) against its plain version at the AMASS default,
 a BatchNorm + max-pool, a channel-only, a token-only, a long-window
 (activations in device scratch) and a wide shape (weights read in place),
 100 launches of each case bit-identical, [15] the AMASS training CLI (2 epochs at its default
-widths on a synthetic corpus), its ``train_state.pt`` served through B4 in
-process and over HTTP with ``--arch auto`` (launch counts reset just before
-the CLI and read just after the serving), [16] B4, serving and AMASS
-training times. Then one JSON line with every kernel's numbers, the card's
+widths on a synthetic corpus as one chunk, held to chunks of one epoch),
+its ``train_state.pt`` served through B4 in process and over HTTP with
+``--arch auto`` (launch counts reset just before the CLI and read just after
+the serving), [16] B4, serving and AMASS training times, the graph path
+held to the eager one. Then one JSON line with every kernel's numbers, the card's
 name and power limit, and the result line. Any failure exits non-zero; with
 no CUDA device, or with the port's package missing beside this script, it
 exits at once and prints no result.
@@ -46,6 +57,7 @@ exits at once and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import shutil
 import statistics
@@ -76,6 +88,23 @@ STEP_FLOOR = 1e-2
 # encoder.channelUpscaling.bias (the next LayerNorm removes a uniform
 # shift), a 25,000-term f32 sum of rounding noise
 ROUNDING_FLOOR = ("encoder.channelUpscaling.bias",)
+# graph against eager (phases 10, 13, 16): steps of each step graph, and
+# the tolerances: losses and evaluations relative, parameters relative to
+# each tensor's largest magnitude (the same kernels in the same order but
+# for cuDNN's and index_add_'s atomics)
+GRAPH_STEPS = 20
+TOL_GRAPH_LOSS = 1e-5
+TOL_GRAPH_PARAM = 1e-4
+TOL_GRAPH_EVAL = 1e-5
+TOL_EPD = 1e-4  # --epochs_per_dispatch 2 against 1, relative, per epoch
+EPD2 = ["--epochs_per_dispatch", "2"]  # the training CLIs' epochs as a chunk
+# B1's kernels counted in phase 9's profiler traces of the training CLI's
+# own run (at least one of each a train step), and the trainer methods each
+# of whose calls that run takes in a trace of its own
+B1_IN_RUN = ("harmonic_dense_fwd_kernel", "harmonic_dense_bwd_dw_kernel")
+TRACED_METHODS = ("_train_sums", "_eval_sums")
+# the graph-against-eager trainers' schedule: a milestone half way
+GRAPH_SCHEDULE = dict(milestones=[1], steps_per_epoch=GRAPH_STEPS // 2)
 B1_BWD_ROWS = (500, 2560)  # a train step at batch 50; the 256-row bulk batch
 B1_FWD_ROWS = (500, 1280, 2560)
 B1_SHAPE = (66, 64, 50)  # the flagship encoder's D, n, E
@@ -273,62 +302,244 @@ def device_us(torch, fn, kernel: str, reps: int = 20):
     return None
 
 
-def profile_steps(torch, step, steps: int = 20) -> str:
-    """Host ms per training step of ``step(i)`` (i < 2 * steps), and from a
-    torch.profiler trace of ``steps`` of them the device kernels per step,
-    their device time per step, the device's idle share, and the kernels
-    that take most of it."""
+def profile_train(torch, run, steps: int, batch: int) -> dict:
+    """Times of a trainer's steps: ``run(lo, hi)`` runs steps lo..hi-1 as
+    one slice of an epoch and ends in a host read. The first ``steps``
+    warm it up (eager warm-up calls and the capture on the graph path);
+    the host clock times the next ``steps`` (step ms, samples/s); a
+    torch.profiler trace of ``steps`` more gives the device kernels per
+    step, their device time per step, the device's idle share and the
+    kernels that take most of it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    for i in range(steps):
-        step(i)
-    torch.cuda.synchronize()
+    run(0, steps)
     t0 = time.perf_counter()
-    for i in range(steps, 2 * steps):
-        step(i)
-    torch.cuda.synchronize()
+    run(steps, 2 * steps)
     host_ms = (time.perf_counter() - t0) / steps * 1e3
+    out = {"step_ms": host_ms, "samples_per_s": batch / host_ms * 1e3}
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for i in range(steps):
-            step(i)
-        torch.cuda.synchronize()
+        run(2 * steps, 3 * steps)
         wall_us = (time.perf_counter() - t0) * 1e6
     # device events, less the user-annotation ranges (e.g. Optimizer.step)
     # that the profiler also draws on the device timeline
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
                and not getattr(e, "is_user_annotation", False)]
-    if not kernels:
-        return f"host {host_ms:.3f} ms/step; device time not measured"
     by_name = {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     busy_us = sum(by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
-    return (f"host {host_ms:.3f} ms/step; profiled {wall_us / steps / 1e3:.3f} "
-            f"ms/step, {len(kernels) / steps:.0f} kernels/step, device busy "
-            f"{busy_us / steps / 1e3:.3f} ms/step, idle share "
-            f"{1 - busy_us / wall_us:.3f}; top device time per step: "
-            + "; ".join(f"{n[:60]} {t / steps:.1f} us" for n, t in top))
+    out.update(profiled_ms=wall_us / steps / 1e3,
+               kernels=len(kernels) / steps,
+               busy_ms=busy_us / steps / 1e3 if kernels else None,
+               idle=1 - busy_us / wall_us if kernels else None,
+               top=[(n, us / steps) for n, us in
+                    sorted(by_name.items(), key=lambda kv: -kv[1])[:5]])
+    return out
 
 
-def train_step_fn(torch, dev, trainer, seed: int, steps: int = 20,
-                  width: int = 96, scale: float = 300.0,
-                  batch: int = TRAIN_BATCH):
-    """``step(i)``: one optimizer step of ``trainer`` on random windows of a
-    random (5000, width) corpus (H36M: 96 coordinates in mm; AMASS: 156 in
-    m), ``batch`` windows; an AutoregressiveTrainer steps closed loop."""
+def train_times(torch, trainer, frames, starts, w, teacher_forcing,
+                steps: int = 20) -> dict:
+    """``profile_train`` of ``trainer`` on (3 steps, B) ``starts``/``w``,
+    on the graph path (scan=True) and op by op (scan=False); on the graph
+    path also the host ms to enqueue one replay of the captured step."""
+    batch = starts.shape[1]
+    times = {scan: profile_train(
+        torch, lambda lo, hi: trainer._train_sums(
+            frames, starts[lo:hi], w[lo:hi], teacher_forcing, scan).cpu(),
+        steps, batch) for scan in (True, False)}
+    graph = next(r.graph for k, r in trainer._graphs.items()
+                 if k[:2] == ("train", teacher_forcing))
+    times[True]["replay_ms"] = host_ms(torch, graph.replay, reps=steps)
+    return times
+
+
+def fmt_times(times: dict) -> str:
+    parts = []
+    for scan, t in times.items():
+        dev = ("device time not measured" if t["busy_ms"] is None else
+               f"{t['kernels']:.0f} kernels/step, device busy "
+               f"{t['busy_ms']:.3f} ms/step, idle share {t['idle']:.3f}; top "
+               + "; ".join(f"{n[:50]} {us:.1f} us" for n, us in t["top"]))
+        replay = (f", the host's enqueue of one replay {t['replay_ms']:.3f} ms"
+                  if "replay_ms" in t else "")
+        parts.append(f"{'graph' if scan else 'eager (scan=False)'}: "
+                     f"{t['samples_per_s']:.1f} samples/s, step "
+                     f"{t['step_ms']:.3f} ms (profiled {t['profiled_ms']:.3f})"
+                     f"{replay}, {dev}")
+    return " | ".join(parts)
+
+
+def random_batches(torch, dev, seed: int, rows: int, width: int,
+                   scale: float, seq_len: int, steps: int, batch: int):
+    """A random (rows, width) corpus on the card and (steps, batch) window
+    starts into it with unit weights."""
     gen = torch.Generator().manual_seed(seed)
-    seq_len = trainer.seq_len
-    frames = (torch.randn(5000, width, generator=gen) * scale).to(dev)
-    starts = torch.randint(0, 5000 - seq_len, (2 * steps, batch),
+    frames = (torch.randn(rows, width, generator=gen) * scale).to(dev)
+    starts = torch.randint(0, rows - seq_len, (steps, batch),
                            generator=gen).to(dev)
-    w = torch.ones(batch, device=dev)
-    trainer.model.train()
-    if hasattr(trainer, "train_step_ar"):
-        return lambda i: trainer.train_step_ar(frames, starts[i], w, False)
-    return lambda i: trainer.train_step(frames, starts[i], w)
+    return frames, starts, torch.ones(steps, batch, device=dev)
+
+
+def graph_vs_eager(torch, make_trainer, frames, starts, w, phases, evals):
+    """Two trainers from one seeded init (``make_trainer()``), one stepping
+    op by op (scan=False), one replaying its captured steps (scan=True; its
+    first WARMUP_CALLS steps of each graph are the eager warm-up): for each
+    teacher-forcing flag of ``phases`` GRAPH_STEPS steps on the same
+    batches, every step's loss kept on the device; then each evaluation
+    ``(kind, n_groups, frames, window_starts, group_ids, batch)`` of
+    ``evals``. Both under deterministic cuDNN, whose atomics would let two
+    eager runs drift apart too. Returns {max relative loss error, max
+    parameter error over its tensor's largest magnitude (and which), max
+    relative evaluation error, bit for bit}."""
+    import numpy as np
+
+    runs = {}
+    torch.backends.cudnn.deterministic = True  # both paths, one sum order
+    for scan in (False, True):
+        tr = make_trainer()
+        sums = [tr._train_sums(frames, starts[i:i + 1], w[i:i + 1], tf, scan)
+                for tf in phases for i in range(GRAPH_STEPS)]
+        ev = [np.stack(tr.evaluate_grouped(f, s, g, ng, bs, kind, scan))
+              for kind, ng, f, s, g, bs in evals]
+        sums = torch.stack(sums).cpu().double()
+        runs[scan] = (sums[:, 0] / sums[:, 1],
+                      {k: p.detach().clone()
+                       for k, p in tr.model.named_parameters()},
+                      [e.astype(np.float64) for e in ev])
+    torch.backends.cudnn.deterministic = False
+    (le, pe, ee), (lg, pg, eg) = runs[False], runs[True]
+    loss_err = float(((lg - le).abs() / le.abs()).max())
+    param_errs = {k: float((pg[k] - pe[k]).abs().max())
+                  / max(float(pe[k].abs().max()), 1e-30) for k in pe}
+    worst = max(param_errs, key=param_errs.get)
+    eval_err = max(float(np.max(np.abs(b - a) / np.maximum(np.abs(a), 1e-30)))
+                   for a, b in zip(ee, eg))
+    bits = (torch.equal(lg, le) and all(torch.equal(pg[k], pe[k]) for k in pe)
+            and all(np.array_equal(a, b) for a, b in zip(ee, eg)))
+    return {"steps": len(le), "loss": loss_err, "param": param_errs[worst],
+            "worst": worst, "eval": eval_err, "bit_for_bit": bits,
+            "losses": [float(v) for v in lg[:: GRAPH_STEPS // 2]]}
+
+
+def epd_rel(hist: dict, ref: dict) -> float:
+    """Max relative difference of two CLI histories' per-epoch train, val
+    and test losses and test metrics."""
+    import numpy as np
+
+    keys = [(k,) for k in ("train", "val", "test")] + [
+        ("metrics", k) for k in hist["metrics"]]
+    err = 0.0
+    for key in keys:
+        a, b = hist, ref
+        for k in key:
+            a, b = a[k], b[k]
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        err = max(err, float(np.max(np.abs(a - b) / np.abs(b))))
+    return err
+
+
+def epd_check(torch, main, argv, save_root) -> tuple:
+    """The training CLI ``main`` on ``argv`` twice under deterministic
+    cuDNN, with --epochs_per_dispatch 2 and with 1 (cuDNN's atomics would
+    let two runs of either drift apart over a thousand steps): the max
+    relative difference of their per-epoch histories and the two
+    histories."""
+    torch.backends.cudnn.deterministic = True
+    try:
+        hists = [main([*argv, *extra, "--save_path", str(save_root / tag)])
+                 for tag, extra in (("epd2", EPD2), ("epd1", []))]
+    finally:
+        torch.backends.cudnn.deterministic = False
+    return epd_rel(*hists), hists[0], hists[1]
+
+
+def check_graph(name: str, res: dict) -> None:
+    if not (res["loss"] <= TOL_GRAPH_LOSS and res["param"] <= TOL_GRAPH_PARAM
+            and res["eval"] <= TOL_GRAPH_EVAL):
+        fail(f"{name}: graph and eager disagree: {res}")
+
+
+def fmt_graph(res: dict) -> str:
+    return (f"{res['steps']} steps, loss rel {res['loss']:.3e} (tol "
+            f"{TOL_GRAPH_LOSS:g}), parameters {res['param']:.3e} of each "
+            f"tensor's max ({res['worst']}; tol {TOL_GRAPH_PARAM:g}), "
+            f"evaluations rel "
+            f"{res['eval']:.3e} (tol {TOL_GRAPH_EVAL:g}), bit for bit "
+            f"{res['bit_for_bit']}")
+
+
+def dropout_replays(torch, dev, model) -> tuple:
+    """Two replays of a captured training-mode forward of ``model`` on one
+    input: (share of outputs that differ with dropout on, the same with
+    the model in eval mode, where none may)."""
+    from motionmixerconv_tpu_torch.train.graphs import WARMUP_CALLS
+
+    x = (torch.randn(TRAIN_BATCH, 10, 66,
+                     generator=torch.Generator().manual_seed(SEED + 12))
+         * 0.3).to(dev)
+    shares = []
+    for train in (True, False):
+        model.train(train)
+        with torch.no_grad():
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                for _ in range(WARMUP_CALLS):
+                    model(x)
+            torch.cuda.current_stream(dev).wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                out = model(x)
+            graph.replay()
+            first = out.clone()
+            graph.replay()
+            shares.append(float((first != out).float().mean()))
+    return tuple(shares)
+
+
+def profiled_launches(torch, run, names) -> tuple:
+    """(``run()``'s result, the device launches of each kernel named in
+    ``names`` (by substring) in a torch.profiler trace of ``run()``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = run()
+        torch.cuda.synchronize()
+    events = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return out, {n: sum(n in e for e in events) for n in names}
+
+
+@contextlib.contextmanager
+def traced_launches(torch, cls, methods, names):
+    """Yields {method: {kernel: device launches}}, the launches of each
+    kernel named in ``names`` (by substring) made by the calls of each of
+    ``cls``'s ``methods`` while the context is open. Every call is taken in
+    a torch.profiler trace of its own: one trace of a whole training run
+    (~500 kernels a step, ~1,000 steps) would outgrow the profiler's device
+    buffers. Replays of a CUDA graph show each of the graph's kernels in
+    the trace, which the launch counters of the Python wrappers cannot."""
+    counts = {m: dict.fromkeys(names, 0) for m in methods}
+    saved = {m: getattr(cls, m) for m in methods}
+
+    def traced(m, fn):
+        def call(*a, **k):
+            out, got = profiled_launches(torch, lambda: fn(*a, **k), names)
+            for n, c in got.items():
+                counts[m][n] += c
+            return out
+        return call
+
+    for m, fn in saved.items():
+        setattr(cls, m, traced(m, fn))
+    try:
+        yield counts
+    finally:
+        for m, fn in saved.items():
+            setattr(cls, m, fn)
 
 
 def step_grads(torch, model, x, target):
@@ -947,9 +1158,13 @@ def main() -> None:
                      " against the float64 step")
     del steps
 
-    # [9] the training path: the CLI on a synthetic corpus, 2 epochs
+    # [9] the training path: the CLI on a synthetic corpus, 2 epochs as one
+    # chunk (--epochs_per_dispatch 2), every step and evaluation batch a
+    # replay of a captured CUDA graph; the same run in chunks of one epoch
+    # and with the plain encoder beside it; the checkpoint served through B2
     from motionmixerconv_tpu_torch.cli import _runner, train_mixer_h36m
     from motionmixerconv_tpu_torch.data import H36MDataset, fixtures
+    from motionmixerconv_tpu_torch.train import Trainer
 
     work = ROOT / "build" / "chip_smoke"
     data_dir = work / "h36m"
@@ -958,21 +1173,28 @@ def main() -> None:
     fixtures.make_h36m_corpus(str(data_dir), n_frames=CORPUS_FRAMES, seed=SEED)
     corpus_s = time.perf_counter() - t0
     args = train_mixer_h36m.parse_args([*TRAIN_ARGV, "--data_dir", str(data_dir)])
-    n_train = len(H36MDataset(str(data_dir), args.input_n, args.output_n,
-                              args.skip_rate, split=0))
+    train_ds = H36MDataset(str(data_dir), args.input_n, args.output_n,
+                           args.skip_rate, split=0)
+    n_train = len(train_ds)
     steps_per_epoch = -(-n_train // args.batch_size)
     steps = args.n_epochs * steps_per_epoch
     runs = {}
-    for tag, extra in (("fused", ["--fused_encoder"]), ("plain", [])):
-        save = work / f"runs_{tag}"
+    for tag, extra in (("fused", ["--fused_encoder", *EPD2]),
+                       ("plain", EPD2)):
+        save = work / f"runs_{len(runs)}"
         shutil.rmtree(save, ignore_errors=True)
         argv = [*TRAIN_ARGV, *extra, "--data_dir", str(data_dir),
                 "--save_path", str(save)]
+        traces = contextlib.nullcontext()
         if tag == "fused":
             for c in (conv_mixer.LAUNCHES, harmonic.LAUNCHES, harmonic.LAUNCHES_BWD):
                 c.reset()
+            # B1's device launches in this run, replays included, counted
+            # from 0 at its start
+            traces = traced_launches(torch, Trainer, TRACED_METHODS, B1_IN_RUN)
         t0 = time.perf_counter()
-        hist = train_mixer_h36m.main(argv)
+        with traces as in_run:
+            hist = train_mixer_h36m.main(argv)
         runs[tag] = (hist, time.perf_counter() - t0,
                      save / "h36_3d_25frames_ckpt" / _runner.WEIGHTS_FILE, argv)
         if tag == "fused":
@@ -1002,25 +1224,48 @@ def main() -> None:
             # relative to the output's scale
             serve_scale = max(1.0, float(want.abs().max()))
             serve_err = float((got - want).abs().max()) / serve_scale
+            b1_run = in_run
+    # the Python counters above see the eager warm-up steps and the
+    # captures, not the replays; the traces see every device launch
+    b1_train = {k: b1_run["_train_sums"][k] for k in B1_IN_RUN}
+    for save in work.glob("epd_*"):
+        shutil.rmtree(save, ignore_errors=True)
+    epd_err, epd_hist2, epd_hist1 = epd_check(
+        torch, train_mixer_h36m.main,
+        [*TRAIN_ARGV, "--fused_encoder", "--data_dir", str(data_dir)],
+        work / "epd_flagship")
     hist = runs["fused"][0]
     values = [*hist["train"], *hist["val"], *hist["test"],
               *hist["metrics"]["mpjpe"], *hist["metrics"]["auc_pck"]]
-    say(f"[9 train CLI --loss_type mpjpe --fused_encoder] corpus written in "
+    say(f"[9 train CLI --loss_type mpjpe --fused_encoder "
+        f"{' '.join(EPD2)}] corpus written in "
         f"{corpus_s:.1f} s, {n_train} train windows, batch {args.batch_size} | train loss {hist['train']} | val {hist['val']} | "
         f"mpjpe {[float(v) for v in hist['metrics']['mpjpe']]} | auc_pck "
-        f"{[float(v) for v in hist['metrics']['auc_pck']]} | launches on the "
-        f"training path {train_launches} for {steps} train steps | trained "
-        f".pt served through B2 (b=32 test windows) vs the plain forward: "
-        f"max abs err / max(1, max|out| = {serve_scale:.1f}) {serve_err:.3e} "
-        f"(tol {TOL_E2E:g}) | plain-encoder run train loss "
-        f"{runs['plain'][0]['train']}")
+        f"{[float(v) for v in hist['metrics']['auc_pck']]} | Python launch "
+        f"counts on the training path {train_launches} for {steps} train "
+        f"steps (eager warm-up, captures, serving) | device launches in the "
+        f"CLI's run (profiler traces of each training and evaluation call):"
+        f" training {b1_train} for {steps} train steps, evaluation "
+        f"{b1_run['_eval_sums']} | deterministic cuDNN, --epochs_per_dispatch"
+        f" 2 against 1: per-epoch history max rel {epd_err:.3e} (tol "
+        f"{TOL_EPD:g}; train loss {epd_hist2['train']} against "
+        f"{epd_hist1['train']}) | trained .pt served through B2 "
+        f"(b=32 test windows) vs the plain forward: max abs err / max(1, "
+        f"max|out| = {serve_scale:.1f}) {serve_err:.3e} (tol {TOL_E2E:g}) | "
+        f"plain-encoder run train loss {runs['plain'][0]['train']}")
     if not all(np.isfinite(float(v)) for v in values):
         fail(f"non-finite loss or metric in {values}")
     if not hist["train"][1] < hist["train"][0]:
         fail(f"train loss did not fall: {hist['train']}")
     for k in ("harmonic_dense_fwd", "harmonic_dense_bwd"):
-        if train_launches[k] < steps:
-            fail(f"{k} launched {train_launches[k]} times for {steps} train steps")
+        if train_launches[k] < 1:
+            fail(f"{k} was never launched on the training path")
+    for k in B1_IN_RUN:
+        if b1_train[k] < steps:
+            fail(f"{k}: {b1_train[k]} device launches in the CLI's {steps} "
+                 "train steps")
+    if not epd_err <= TOL_EPD:
+        fail(f"--epochs_per_dispatch 2 and 1 disagree: {epd_err:.3e}")
     if train_launches["conv_mixer_fused"] < 1:
         fail("the trained checkpoint was not served through B2")
     if got.shape != (32, 25, 66) or not serve_err <= TOL_E2E:
@@ -1028,13 +1273,18 @@ def main() -> None:
 
     # [10] training times (host clock around work ending in a host read;
     # kernels by CUDA events and the profiler)
+    # the fused run's calls were traced (phase 9); the same CLI's untraced
+    # --epochs_per_dispatch 2 run of the epd check beside it
     per = {}
-    for tag in ("fused", "plain"):
-        h = runs[tag][0]
+    for tag, h, run_s in (
+            ("fused, each training and evaluation call traced",
+             *runs["fused"][:2]),
+            ("fused, untraced, deterministic cuDNN", epd_hist2, None),
+            ("plain", *runs["plain"][:2])):
         per[tag] = {"train_s": h["train_s"], "epoch_s": h["epoch_s"],
                     "samples_per_s": [n_train / t for t in h["train_s"]],
                     "step_ms": [t / steps_per_epoch * 1e3 for t in h["train_s"]],
-                    "run_s": runs[tag][1]}
+                    "run_s": run_s}
     # B1 at the training step's rows and the bulk rows; the yardsticks are
     # cuBLAS's f32 products alone on a precomputed embedding (no trig)
     from motionmixerconv_tpu_torch.models.encoding import harmonic_features
@@ -1078,22 +1328,45 @@ def main() -> None:
                         x2d, gr, w, freqs, "direct", wi, need_dx=True), k, reps=5)
         r0 = B1_BWD_ROWS[0]  # the training step's rows
     from motionmixerconv_tpu_torch.data.constants import H36M_DIM_USED_XYZ
-    from motionmixerconv_tpu_torch.train import Trainer, make_optimizer
+    from motionmixerconv_tpu_torch.train import make_optimizer
 
-    model = ConvMixer(**FLAGSHIP, encoder_fused=True,
-                      generator=torch.Generator().manual_seed(SEED + 6)).to(dev)
-    step_prof = profile_steps(torch, train_step_fn(torch, dev, Trainer(
-        model, make_optimizer(model.parameters(), lr=1e-3), loss_type="mpjpe",
-        dim_used=H36M_DIM_USED_XYZ, input_n=10, output_n=25, input_scale=1e-3),
-        SEED + 6))
-    del model
-    say(f"[10 train times] {card} | per epoch (epoch 0, epoch 1): "
+    def flagship_trainer(regularization, **opt):
+        model = ConvMixer(**dict(FLAGSHIP, regularization=regularization),
+                          encoder_fused=True,
+                          generator=torch.Generator().manual_seed(SEED + 6))
+        model = model.to(dev)
+        return Trainer(model, make_optimizer(model.parameters(), lr=1e-3, **opt),
+                       loss_type="mpjpe", dim_used=H36M_DIM_USED_XYZ,
+                       input_n=10, output_n=25, input_scale=1e-3)
+
+    frames, starts, w = random_batches(torch, dev, SEED + 6, 5000, 96, 300.0,
+                                       35, 3 * GRAPH_STEPS, TRAIN_BATCH)
+    ev_starts = np.random.default_rng(SEED + 6).integers(0, 5000 - 35, 900)
+    ev_gids = np.arange(900) % 3
+    flag_graph = graph_vs_eager(
+        torch, lambda: flagship_trainer(0.0, **GRAPH_SCHEDULE), frames,
+        starts, w, [None],
+        [("val", 1, frames, ev_starts, np.zeros(900, np.int64), TRAIN_BATCH),
+         ("h36m_xyz", 3, frames, ev_starts, ev_gids, 128)])
+    check_graph("flagship", flag_graph)
+    trainer = flagship_trainer(FLAGSHIP["regularization"])
+    masks = dropout_replays(torch, dev, trainer.model)
+    if not (masks[0] > 0 and masks[1] == 0):
+        fail(f"dropout under graphs: outputs that differ between two replays "
+             f"{masks[0]:.3f} with dropout, {masks[1]:.3f} without")
+    flag_times = train_times(torch, trainer, frames, starts, w, None)
+    del trainer
+    say(f"[10 train times] {card} | CLI per epoch (epoch 0, epoch 1; in "
+        "the --epochs_per_dispatch 2 runs each epoch's train s and epoch s "
+        "are the chunk's / 2, validation and test included): "
         + " ; ".join(
             f"{t}: train s {p['train_s'][0]:.3f}, {p['train_s'][1]:.3f} | "
             f"epoch s (train+val+test+ckpt) {p['epoch_s'][0]:.3f}, "
             f"{p['epoch_s'][1]:.3f} | train samples/s {p['samples_per_s'][0]:.1f}, "
             f"{p['samples_per_s'][1]:.1f} | step ms {p['step_ms'][0]:.3f}, "
-            f"{p['step_ms'][1]:.3f} | whole CLI run s {p['run_s']:.2f}"
+            f"{p['step_ms'][1]:.3f}" + (
+                "" if p["run_s"] is None
+                else f" | whole CLI run s {p['run_s']:.2f}")
             for t, p in per.items())
         + " | B1-bwd direct kernel/plain ms (bound ms, by): "
         + " ; ".join(
@@ -1113,7 +1386,11 @@ def main() -> None:
         + " | profiler device us/launch: " + " ; ".join(
             f"{k} {'not measured' if v is None else f'{v:.2f}'}"
             for k, v in b1_dev.items())
-        + f" | profiled train steps (fused, batch {TRAIN_BATCH}): {step_prof}")
+        + f" | graph against eager (dropout off, deterministic cuDNN): "
+        f"{fmt_graph(flag_graph)} | dropout 0.1 under graphs: outputs that "
+        f"differ between two replays of a captured training forward "
+        f"{masks[0]:.3f} (eval mode {masks[1]:.3f}) | train steps (fused, "
+        f"batch {TRAIN_BATCH}, dropout 0.1): {fmt_times(flag_times)}")
 
     # [11] B3 against its plain version: the autoregressive default (warmed
     # BatchNorm stats), the study shape and two widths that take clusters,
@@ -1218,7 +1495,8 @@ def main() -> None:
 
     ar_save = work / "runs_ar"
     shutil.rmtree(ar_save, ignore_errors=True)
-    ar_argv = [*AR_ARGV, "--data_dir", str(data_dir), "--save_path", str(ar_save)]
+    ar_argv = [*AR_ARGV, *EPD2, "--data_dir", str(data_dir), "--save_path",
+               str(ar_save)]
     ar_args = train_autoreg_mixer_h36m.parse_args(ar_argv)
     n_train_ar = len(H36MDataset(str(data_dir), ar_args.input_n_dataset,
                                  ar_args.output_n_dataset, ar_args.skip_rate,
@@ -1246,6 +1524,9 @@ def main() -> None:
     torch.cuda.synchronize()
     ar_launches = {k: c.value for k, c in counters.items()}
     ar_pred_lat = host_median_ms(lambda: served_ar.predict(x_ar[:1]).cpu())
+    ar_epd_err, ar_epd2, ar_epd1 = epd_check(
+        torch, train_autoreg_mixer_h36m.main,
+        [*AR_ARGV, "--data_dir", str(data_dir)], work / "epd_autoregressive")
     with torch.no_grad():
         want = served_ar.model(x_ar.to(dev))  # the loaded nn.Module, plain
     ar_scale = max(1.0, float(want.abs().max()))
@@ -1254,7 +1535,7 @@ def main() -> None:
     ar_http_err = float((http_ar - want[:5].cpu()).abs().max()) / ar_scale
     values = [*ar_hist["train"], *ar_hist["val"], *ar_hist["test"],
               *ar_hist["metrics"]["mpjpe"], *ar_hist["metrics"]["auc_pck"]]
-    say(f"[12 autoregressive CLI {' '.join(AR_ARGV)}] model "
+    say(f"[12 autoregressive CLI {' '.join(AR_ARGV + EPD2)}] model "
         f"{type(served_ar._fused).__name__} conv_nChan "
         f"{served_ar.model.conv_nChan} dimPosEmb {served_ar.model.dimPosEmb} "
         f"BatchNorm {served_ar.model.regularization == -1.0} | {n_train_ar} "
@@ -1263,7 +1544,10 @@ def main() -> None:
         f"{ar_hist['val']} (closed loop both) | rollout mpjpe "
         f"{[float(v) for v in ar_hist['metrics']['mpjpe']]} | auc_pck "
         f"{[float(v) for v in ar_hist['metrics']['auc_pck']]} | launches on "
-        f"the path {ar_launches} | train_state.pt served through B3 (b=32 "
+        f"the path {ar_launches} | deterministic cuDNN, --epochs_per_dispatch "
+        f"2 against 1: per-epoch history max rel {ar_epd_err:.3e} (tol "
+        f"{TOL_EPD:g}; train loss {ar_epd2['train']} against {ar_epd1['train']}) | train_state.pt "
+        f"served through B3 (b=32 "
         f"test windows) vs the plain forward: max abs err / max(1, max|out| = "
         f"{ar_scale:.1f}) {ar_err:.3e}; /predict b=5 {ar_http_err:.3e} (tol "
         f"{TOL_E2E:g}) | {card}: served Predictor.predict b=1 "
@@ -1275,6 +1559,9 @@ def main() -> None:
              f"{ar_hist['val']}")
     if ar_launches["conv_mixer_mc"] < 1:
         fail("the autoregressive checkpoint was not served through B3")
+    if not ar_epd_err <= TOL_EPD:
+        fail(f"autoregressive --epochs_per_dispatch 2 and 1 disagree: "
+             f"{ar_epd_err:.3e}")
     if got.shape != (32, 5, 66) or not torch.isfinite(got).all() \
             or not ar_err <= TOL_E2E or not ar_http_err <= TOL_E2E:
         fail(f"served autoregressive checkpoint: shape {tuple(got.shape)}, "
@@ -1284,23 +1571,42 @@ def main() -> None:
     # ending in a host read) and a profiled window of closed-loop steps
     from motionmixerconv_tpu_torch.train import AutoregressiveTrainer
 
-    model = ConvMixer(**AUTOREG,
-                      generator=torch.Generator().manual_seed(SEED + 8)).to(dev)
-    ar_prof = profile_steps(torch, train_step_fn(torch, dev, AutoregressiveTrainer(
-        model, make_optimizer(model.parameters(), lr=1e-3), loss_type="mpjpe",
-        dim_used=H36M_DIM_USED_XYZ, input_n=10, output_n=25, input_n_model=10,
-        output_n_model=5, step_window=5), SEED + 8))
-    del model
-    say(f"[13 autoregressive times] {card} | epoch 0 (teacher forcing), "
-        f"epoch 1 (closed loop): train s {ar_hist['train_s'][0]:.3f}, "
+    def ar_trainer(**opt):
+        model = ConvMixer(**AUTOREG,
+                          generator=torch.Generator().manual_seed(SEED + 8))
+        model = model.to(dev)
+        return AutoregressiveTrainer(
+            model, make_optimizer(model.parameters(), lr=1e-3, **opt),
+            loss_type="mpjpe", dim_used=H36M_DIM_USED_XYZ, input_n=10,
+            output_n=25, input_n_model=10, output_n_model=5, step_window=5)
+
+    frames, starts, w = random_batches(torch, dev, SEED + 8, 5000, 96, 300.0,
+                                       35, 3 * GRAPH_STEPS, TRAIN_BATCH)
+    ev_starts = np.random.default_rng(SEED + 8).integers(0, 5000 - 35, 400)
+    ev_zeros = np.zeros(400, np.int64)
+    ar_graph = graph_vs_eager(
+        torch, lambda: ar_trainer(**GRAPH_SCHEDULE), frames, starts, w,
+        [True, False], [("val", 1, frames, ev_starts, ev_zeros, TRAIN_BATCH),
+                        ("ar", 1, frames, ev_starts, ev_zeros, TRAIN_BATCH)])
+    check_graph("autoregressive", ar_graph)
+    trainer = ar_trainer()
+    ar_times = {tf: train_times(torch, trainer, frames, starts, w, tf)
+                for tf in (True, False)}
+    del trainer
+    say(f"[13 autoregressive times] {card} | CLI epoch 0 (teacher forcing), "
+        f"epoch 1 (closed loop), a chunk each (train s and samples/s include "
+        f"the chunk's validation and test): train s {ar_hist['train_s'][0]:.3f}, "
         f"{ar_hist['train_s'][1]:.3f} | train samples/s "
         f"{n_train_ar / ar_hist['train_s'][0]:.1f}, "
         f"{n_train_ar / ar_hist['train_s'][1]:.1f} | step ms "
         f"{ar_hist['train_s'][0] / ar_steps * 1e3:.3f}, "
         f"{ar_hist['train_s'][1] / ar_steps * 1e3:.3f} | epoch s (train+val+"
         f"test+ckpt) {ar_hist['epoch_s'][0]:.3f}, {ar_hist['epoch_s'][1]:.3f}"
-        f" | whole CLI run s {ar_run_s:.2f} | profiled closed-loop steps "
-        f"(batch {TRAIN_BATCH}): {ar_prof}")
+        f" | whole CLI run s {ar_run_s:.2f} | graph against eager (teacher "
+        f"forcing, then closed loop; deterministic cuDNN): {fmt_graph(ar_graph)}"
+        f" | teacher-forcing steps (batch {TRAIN_BATCH}): "
+        f"{fmt_times(ar_times[True])} | closed-loop steps: "
+        f"{fmt_times(ar_times[False])}")
 
     # [14] B4 against its plain version at the AMASS default and the
     # variants it takes, B4_REPEATS launches of each case bit-identical
@@ -1364,8 +1670,8 @@ def main() -> None:
     amass_corpus_s = time.perf_counter() - t0
     am_save = work / "runs_amass"
     shutil.rmtree(am_save, ignore_errors=True)
-    am_argv = [*AMASS_ARGV, "--data_dir", str(amass_dir), "--save_path",
-               str(am_save)]
+    am_argv = [*AMASS_ARGV, *EPD2, "--data_dir", str(amass_dir),
+               "--save_path", str(am_save)]
     am_args = train_mixer_amass.parse_args(am_argv)
     counters["mlp_mixer_fused"] = mlp_mixer.LAUNCHES
     for c in (*counters.values(), mlp_mixer.PLAIN_CALLS):
@@ -1389,6 +1695,9 @@ def main() -> None:
     torch.cuda.synchronize()
     am_launches = {k: c.value for k, c in counters.items()}
     am_plain_calls = mlp_mixer.PLAIN_CALLS.value
+    am_epd_err, am_epd2, am_epd1 = epd_check(
+        torch, train_mixer_amass.main,
+        [*AMASS_ARGV, "--data_dir", str(amass_dir)], work / "epd_amass")
     with torch.no_grad():
         want = served_am.model(x_am.to(dev))  # the loaded nn.Module, plain
     am_scale = max(1.0, float(want.abs().max()))
@@ -1399,14 +1708,16 @@ def main() -> None:
     n_val_am = len(AMASSDataset(str(amass_dir), 10, 25, 1, split=1))
     am_steps = -(-n_train_am // am_args.batch_size)
     values = [*am_hist["train"], *am_hist["val"], *am_hist["test"]]
-    say(f"[15 AMASS CLI {' '.join(AMASS_ARGV)}] corpus written in "
+    say(f"[15 AMASS CLI {' '.join(AMASS_ARGV + EPD2)}] corpus written in "
         f"{amass_corpus_s:.1f} s: {n_train_am} train, {n_val_am} val, "
         f"{len(am_test)} test windows, batch {am_args.batch_size} | model "
         f"{type(served_am._fused).__name__} hidden {served_am.model.hidden_dim}"
         f" blocks {served_am.model.num_blocks} | train loss {am_hist['train']}"
         f" | val {am_hist['val']} | test mpjpe mm {am_hist['test']} | "
         f"launches on the path {am_launches}, plain-version calls "
-        f"{am_plain_calls} | train_state.pt served through B4 (b=32 test "
+        f"{am_plain_calls} | deterministic cuDNN, --epochs_per_dispatch 2 "
+        f"against 1: per-epoch history max rel {am_epd_err:.3e} (tol "
+        f"{TOL_EPD:g}; train loss {am_epd2['train']} against {am_epd1['train']}) | train_state.pt served through B4 (b=32 test "
         f"windows) vs the plain forward: max abs err / max(1, max|out| = "
         f"{am_scale:.3f}) {am_err:.3e}; /predict --arch auto b=5 "
         f"{am_http_err:.3e} (tol {TOL_E2E:g})")
@@ -1414,6 +1725,8 @@ def main() -> None:
         fail(f"AMASS run: non-finite loss or metric in {values}")
     if not am_hist["train"][1] < am_hist["train"][0]:
         fail(f"AMASS run: the train loss did not fall: {am_hist['train']}")
+    if not am_epd_err <= TOL_EPD:
+        fail(f"AMASS --epochs_per_dispatch 2 and 1 disagree: {am_epd_err:.3e}")
     if am_launches["mlp_mixer_fused"] < 1 or am_plain_calls != 0:
         fail(f"AMASS checkpoint: B4 launched {am_launches['mlp_mixer_fused']}"
              f" times, the plain version called {am_plain_calls} times")
@@ -1451,14 +1764,26 @@ def main() -> None:
     payload = {"inputs": x_am[:1].tolist()}
     am_http_lat = host_median_ms(lambda: post(am_base, "/predict", payload))
     am_server.close()
-    model = MlpMixer(**AMASS_MLP,
-                     generator=torch.Generator().manual_seed(SEED + 10)).to(dev)
-    am_prof = profile_steps(torch, train_step_fn(torch, dev, Trainer(
-        model, make_optimizer(model.parameters(), lr=1e-3), loss_type="mpjpe",
-        dim_used=AMASS_DIM_USED, input_n=10, output_n=25, input_scale=1.0,
-        loss_scale=1000.0), SEED + 10, width=156, scale=0.3,
-        batch=am_args.batch_size))
-    del model
+    def amass_trainer(regularization, **opt):
+        model = MlpMixer(**dict(AMASS_MLP, regularization=regularization),
+                         generator=torch.Generator().manual_seed(SEED + 10))
+        model = model.to(dev)
+        return Trainer(model, make_optimizer(model.parameters(), lr=1e-3, **opt),
+                       loss_type="mpjpe", dim_used=AMASS_DIM_USED, input_n=10,
+                       output_n=25, input_scale=1.0, loss_scale=1000.0)
+
+    batch = am_args.batch_size
+    frames, starts, w = random_batches(torch, dev, SEED + 10, 5000, 156, 0.3,
+                                       35, 3 * GRAPH_STEPS, batch)
+    ev_starts = np.random.default_rng(SEED + 10).integers(0, 5000 - 35, 1200)
+    ev_zeros = np.zeros(1200, np.int64)
+    am_graph = graph_vs_eager(
+        torch, lambda: amass_trainer(0.0, **GRAPH_SCHEDULE), frames, starts,
+        w, [None], [("val", 1, frames, ev_starts, ev_zeros, batch),
+                    ("amass22", 1, frames, ev_starts, ev_zeros, batch)])
+    check_graph("AMASS", am_graph)
+    am_times = train_times(torch, amass_trainer(AMASS_MLP["regularization"]),
+                           frames, starts, w, None)
     say(f"[16 AMASS times] {card} | B4 mlp_mixer_fused ms: per call from "
         "Python / device (calls queued) / plain (bound ms, by): " + " ; ".join(
             f"B={b} {k:.4f}/{q:.4f}/{p:.4f} ({bd[0]:.5f}, {bd[1]})"
@@ -1471,7 +1796,8 @@ def main() -> None:
         + " | Predictor.predict latency ms (host clock, to a CPU array): "
         + " ; ".join(f"b={b} {v:.3f}" for b, v in am_pred_lat.items())
         + f" | HTTP /predict b=1 {am_http_lat:.3f} ms"
-        + f" | epochs 0, 1: train s {am_hist['train_s'][0]:.3f}, "
+        + f" | CLI epochs 0, 1 as one chunk (each the chunk's / 2, "
+          f"validation and test included): train s {am_hist['train_s'][0]:.3f}, "
           f"{am_hist['train_s'][1]:.3f} | train samples/s "
           f"{n_train_am / am_hist['train_s'][0]:.1f}, "
           f"{n_train_am / am_hist['train_s'][1]:.1f} | step ms "
@@ -1479,7 +1805,8 @@ def main() -> None:
           f"{am_hist['train_s'][1] / am_steps * 1e3:.3f} ({am_steps} steps) | "
           f"epoch s (train+val+test+ckpt) {am_hist['epoch_s'][0]:.3f}, "
           f"{am_hist['epoch_s'][1]:.3f} | whole CLI run s {am_run_s:.2f} | "
-          f"profiled train steps (batch {am_args.batch_size}): {am_prof}")
+          f"graph against eager (dropout off): {fmt_graph(am_graph)} | train "
+          f"steps (batch {batch}, dropout 0.1): {fmt_times(am_times)}")
 
     kernels = [
         {"name": "conv_mixer_fused", "route": "cuda",
@@ -1495,6 +1822,7 @@ def main() -> None:
          "source": "motionmixerconv_tpu_torch/csrc/harmonic_dense.cu",
          "replaces": "motionmixerconv_tpu/ops/pallas_harmonic.py:54",
          "launches": launches["harmonic_dense_fwd"], "max_abs_err": b1_err,
+         "device_launches_per_train_step": b1_train[B1_IN_RUN[0]] / steps,
          "ms": b1["direct"][0], "plain_ms": b1["direct"][1], "bound_ms": bound_b1,
          "bound_by": by_b1, "library_ms": fwd_t[BULK_ROWS * 10]["library_ms"],
          "library_note": "F.linear(embed, W, b), cuBLAS f32, on a precomputed "
@@ -1510,6 +1838,7 @@ def main() -> None:
          "source": "motionmixerconv_tpu_torch/csrc/harmonic_dense.cu",
          "replaces": "motionmixerconv_tpu/ops/pallas_harmonic.py:104",
          "launches": train_launches["harmonic_dense_bwd"],
+         "device_launches_per_train_step": b1_train[B1_IN_RUN[1]] / steps,
          "max_abs_err": max(bwd_err["dW"], bwd_err["db"]),
          "dx_err_over_max": bwd_err["dx_rel"],
          "ms": bwd_t[(r0, False)][0], "plain_ms": bwd_t[(r0, False)][1],

@@ -4,9 +4,12 @@ Counterpart of ``motionmixerconv_tpu/cli/_runner.py`` for the direct and the
 autoregressive H36M paths and the AMASS MlpMixer path: build the model from
 the flags, load the three splits, train epoch by epoch, validate, test (the
 grouped test over the H36M actions; AMASS's 22-joint scatter test), log,
-and write a checkpoint every epoch. ``model_from_checkpoint_meta`` rebuilds
-a trained model from its checkpoint's stored flags. The AIS drivers land
-with their slice.
+and write a checkpoint every epoch. With ``--epochs_per_dispatch`` K > 1
+each chunk of K epochs runs as ``Trainer.run_epochs_fused`` (one host read
+a chunk) and is checkpointed at its last epoch, as the JAX drivers'
+``_run_fused_chunks`` do. ``model_from_checkpoint_meta`` rebuilds a trained
+model from its checkpoint's stored flags. The AIS drivers land with their
+slice.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ from ..train import (AutoregressiveTrainer, Trainer, make_optimizer,
 
 STATE_FILE = "train_state.pt"  # full training state, for --resume
 WEIGHTS_FILE = "model.pt"      # reference-layout weights, for serving
+METRIC_NAMES = ("mpjpe", "auc_pck")  # the test kinds' two metrics
 
 
 def build_conv_mixer(args, dim_in: int, dim_out: int, in_ntp: int,
@@ -36,11 +40,9 @@ def build_conv_mixer(args, dim_in: int, dim_out: int, in_ntp: int,
                      generator: Optional[torch.Generator] = None
                      ) -> ConvMixer:
     """ConvMixer from CLI flags (train_mixer_h36m.py:575-595 defaults);
-    ``generator`` seeds its init."""
-    if getattr(args, "embed_dtype", "f32") != "f32":
-        raise NotImplementedError(
-            "--embed_dtype bf16 is not ported to the training CLI yet "
-            "(ROADMAP queue A item 19)")
+    ``generator`` seeds its init. ``--embed_dtype bf16`` stores the
+    materialized harmonic embedding in bfloat16 (with ``--fused_encoder``
+    the encoder raises ValueError, as the JAX package's does)."""
     return ConvMixer(
         num_blocks=args.num_blocks,
         dimPosIn=dim_in,
@@ -63,6 +65,9 @@ def build_conv_mixer(args, dim_in: int, dim_out: int, in_ntp: int,
         encoder_omega0=getattr(args, "encoder_omega0", 0.1),
         encoder_fused=getattr(args, "fused_encoder", False),
         encoder_harmonic_impl=getattr(args, "harmonic_impl", "direct"),
+        encoder_embed_dtype=(
+            torch.bfloat16
+            if getattr(args, "embed_dtype", "f32") == "bf16" else None),
         generator=generator,
     )
 
@@ -184,6 +189,28 @@ def model_from_checkpoint_meta(meta: dict) -> torch.nn.Module:
     return build_conv_mixer(args, dim, dim, in_n, out_n)
 
 
+def _log_epoch(history: dict, logger: MetricLogger, epoch: int,
+               train_loss: float, val_loss: float, m1s, m2s, ns,
+               action_names) -> float:
+    """Record one epoch's losses and per-group test sums in ``history``
+    and the logger; returns the test metric's mean."""
+    per_action = {a: (m1s[i] / ns[i], m2s[i] / ns[i])
+                  for i, a in enumerate(action_names)}
+    m1_avg = m1s.sum() / ns.sum()
+    m2_avg = m2s.sum() / ns.sum()
+    history["train"].append(train_loss)
+    history["val"].append(val_loss)
+    history["test"].append(m1_avg)
+    history["per_action"] = per_action
+    for name, value in zip(METRIC_NAMES, (m1_avg, m2_avg)):
+        history["metrics"][name].append(value)
+        logger.add_scalar(f"metrics/{name}", value, epoch)
+    logger.add_scalar("loss/train", train_loss, epoch)
+    logger.add_scalar("loss/val", val_loss, epoch)
+    logger.add_scalar("loss/test", m1_avg, epoch)
+    return m1_avg
+
+
 def _train_and_evaluate(
     args, trainer: Trainer, logger: MetricLogger, log_dir: str,
     dataset, frames, vald, vframes,
@@ -198,14 +225,33 @@ def _train_and_evaluate(
     ``args.batch_size_test``) -> history, logged scalars, checkpoint (also
     to ``state_copy_path`` when given). ``teacher_forcing_epochs`` not None
     selects the autoregressive trainer: teacher forcing while ``epoch`` is
-    below it, closed loop after."""
-    if int(getattr(args, "epochs_per_dispatch", 1) or 1) > 1:
-        trainer.run_epochs_fused()  # raises: not ported
+    below it, closed loop after. ``args.epochs_per_dispatch`` > 1 runs the
+    epochs in chunks (``_train_and_evaluate_fused``)."""
     autoreg = teacher_forcing_epochs is not None
-    metric_names = ("mpjpe", "auc_pck")
     history = {"train": [], "val": [], "test": [],
-               "metrics": {metric_names[0]: [], metric_names[1]: []},
+               "metrics": {name: [] for name in METRIC_NAMES},
                "train_s": [], "epoch_s": []}
+    batch_size_test = test_batch_size or args.batch_size_test
+
+    def save(epoch: int) -> None:
+        save_checkpoint(os.path.join(log_dir, STATE_FILE), trainer.model,
+                        trainer.optimizer, epoch, meta=vars(args),
+                        weights_path=os.path.join(log_dir, WEIGHTS_FILE))
+        if state_copy_path:
+            save_checkpoint(state_copy_path, trainer.model, trainer.optimizer,
+                            epoch, meta=vars(args))
+
+    epd = int(getattr(args, "epochs_per_dispatch", 1) or 1)
+    if epd > 1:
+        return _train_and_evaluate_fused(
+            args, trainer, logger, history, save, epd,
+            dataset=dataset, frames=frames, vald=vald, vframes=vframes,
+            test_frames=test_frames, test_starts=test_starts,
+            test_gids=test_gids, action_names=action_names,
+            test_kind=test_kind, batch_size_test=batch_size_test,
+            start_epoch=start_epoch,
+            teacher_forcing_epochs=teacher_forcing_epochs)
+
     for epoch in range(start_epoch, args.n_epochs):
         t0 = time.perf_counter()
         if autoreg:
@@ -222,30 +268,10 @@ def _train_and_evaluate(
         val_loss = trainer.validate(vald, vframes, args.batch_size)
         m1s, m2s, ns = trainer.evaluate_grouped(
             test_frames, test_starts, test_gids, len(action_names),
-            test_batch_size or args.batch_size_test, test_kind)
-        per_action = {a: (m1s[i] / ns[i], m2s[i] / ns[i])
-                      for i, a in enumerate(action_names)}
-        m1_avg = m1s.sum() / ns.sum()
-        m2_avg = m2s.sum() / ns.sum()
-
-        history["train"].append(train_loss)
-        history["val"].append(val_loss)
-        history["test"].append(m1_avg)
-        history["per_action"] = per_action
-        history["metrics"][metric_names[0]].append(m1_avg)
-        history["metrics"][metric_names[1]].append(m2_avg)
-        logger.add_scalar("loss/train", train_loss, epoch)
-        logger.add_scalar("loss/val", val_loss, epoch)
-        logger.add_scalar("loss/test", m1_avg, epoch)
-        logger.add_scalar(f"metrics/{metric_names[0]}", m1_avg, epoch)
-        logger.add_scalar(f"metrics/{metric_names[1]}", m2_avg, epoch)
-
-        save_checkpoint(os.path.join(log_dir, STATE_FILE), trainer.model,
-                        trainer.optimizer, epoch, meta=vars(args),
-                        weights_path=os.path.join(log_dir, WEIGHTS_FILE))
-        if state_copy_path:
-            save_checkpoint(state_copy_path, trainer.model, trainer.optimizer,
-                            epoch, meta=vars(args))
+            batch_size_test, test_kind)
+        m1_avg = _log_epoch(history, logger, epoch, train_loss, val_loss,
+                            m1s, m2s, ns, action_names)
+        save(epoch)
         epoch_s = time.perf_counter() - t0
         history["train_s"].append(train_s)
         history["epoch_s"].append(epoch_s)
@@ -254,6 +280,100 @@ def _train_and_evaluate(
         print(f"epoch {epoch}: {tf_note}train {train_loss:.4f} val "
               f"{val_loss:.4f} test {m1_avg:.4f} ({epoch_s:.1f}s, train "
               f"{train_s:.1f}s)")
+    return history
+
+
+def _chunk_epochs(start: int, stop: int, epd: int, tf_boundary=None):
+    """Split [start, stop) into chunks of <= epd epochs, never straddling the
+    teacher-forcing boundary (a chunk's steps share one teacher-forcing
+    flag). The JAX package's chunking, kept identical: per segment, if epd
+    does not divide the length, the largest divisor in [ceil(epd/2), epd]
+    (one chunk length), otherwise balanced chunk sizes differing by one."""
+    cuts = [start, stop]
+    if tf_boundary is not None and start < tf_boundary < stop:
+        cuts.insert(1, tf_boundary)
+    chunks = []
+    for lo, hi in zip(cuts[:-1], cuts[1:]):
+        length = hi - lo
+        if length <= 0:
+            continue
+        if length % epd == 0:
+            sizes = [epd] * (length // epd)
+        else:
+            div = next(
+                (d for d in range(min(epd, length), (epd + 1) // 2 - 1, -1)
+                 if length % d == 0),
+                None,
+            )
+            if div is not None:
+                sizes = [div] * (length // div)
+            else:
+                n_chunks = -(-length // epd)
+                base, extra = divmod(length, n_chunks)
+                sizes = [base + 1] * extra + [base] * (n_chunks - extra)
+                print(
+                    f">>> epochs_per_dispatch={epd} does not divide "
+                    f"{length} epochs: using chunk sizes {base + 1}/{base} "
+                    "(two compiled programs)"
+                )
+        e = lo
+        for s in sizes:
+            chunks.append(range(e, e + s))
+            e += s
+    return chunks
+
+
+def _train_and_evaluate_fused(args, trainer: Trainer, logger: MetricLogger,
+                              history: dict, save, epd: int, *, dataset,
+                              frames, vald, vframes, test_frames,
+                              test_starts, test_gids, action_names,
+                              test_kind: str, batch_size_test: int,
+                              start_epoch: int, teacher_forcing_epochs):
+    """``_train_and_evaluate`` with ``--epochs_per_dispatch`` > 1: each chunk
+    of ``_chunk_epochs`` runs as ``Trainer.run_epochs_fused``, and its one
+    read gives the same per-epoch history, scalars and lines. The
+    differences, as in the JAX package's ``_run_fused_chunks``: checkpoints
+    (``save``) are written once per chunk, at its last epoch, and
+    ``perf/train_seq_per_sec`` (like the history's ``train_s`` and
+    ``epoch_s``) is the chunk's amortised rate, validation and test
+    included. For the autoregressive trainer, a chunk whose train losses go
+    non-finite logs its finite prefix of epochs, then raises
+    FloatingPointError; the last checkpoint is the previous chunk's."""
+    autoreg = teacher_forcing_epochs is not None
+    for chunk in _chunk_epochs(start_epoch, args.n_epochs, epd,
+                               teacher_forcing_epochs):
+        epochs = list(chunk)
+        k = len(epochs)
+        tf = epochs[0] < teacher_forcing_epochs if autoreg else None
+        t0 = time.perf_counter()
+        out = trainer.run_epochs_fused(
+            dataset, frames, args.batch_size, epochs, vald, vframes,
+            test_frames, test_starts, test_gids, len(action_names), test_kind,
+            batch_size_test, teacher_forcing=tf)
+        per_epoch_s = (time.perf_counter() - t0) / k
+        seq_per_s = len(dataset) / max(per_epoch_s, 1e-9)
+        finite = np.isfinite(out["train"])
+        n_good = k if (not autoreg or finite.all()) else int(np.argmin(finite))
+        for i, epoch in enumerate(epochs[:n_good]):
+            train_loss, val_loss = float(out["train"][i]), float(out["val"][i])
+            m1_avg = _log_epoch(history, logger, epoch, train_loss, val_loss,
+                                out["m1"][i], out["m2"][i], out["n"][i],
+                                action_names)
+            history["train_s"].append(per_epoch_s)
+            history["epoch_s"].append(per_epoch_s)
+            logger.add_scalar("perf/train_seq_per_sec", seq_per_s, epoch)
+            logger.add_scalar("perf/epoch_s", per_epoch_s, epoch)
+            tf_note = f"tf={epoch < teacher_forcing_epochs} " if autoreg else ""
+            print(f"epoch {epoch}: {tf_note}train {train_loss:.4f} val "
+                  f"{val_loss:.4f} test {m1_avg:.4f} ({per_epoch_s:.1f}s, "
+                  f"fused x{k})")
+        if n_good < k:
+            raise FloatingPointError(
+                f"Loss is nan at epoch {epochs[n_good]} — closed-loop "
+                "rollout diverged (try --clip_grad or more teacher-forcing "
+                f"epochs); logged {n_good} finite epochs of this chunk, "
+                "last checkpoint is the previous chunk's")
+        save(epochs[-1])
     return history
 
 
@@ -364,7 +484,8 @@ def run_amass(args, model: Optional[MlpMixer] = None,
     ``args.dev``: the MlpMixer on 54 dims (joints 4..21), input unscaled
     (meters), train and validation loss x1000, the 22-joint test (one
     group, in batches of ``args.batch_size`` as the reference) every epoch,
-    and ``train_state.pt`` + ``model.pt`` every epoch (also to
+    and ``train_state.pt`` + ``model.pt`` every epoch or, with
+    ``--epochs_per_dispatch``, every chunk (also to
     ``args.model_path`` when set). ``init_state_dict`` (reference layout)
     replaces the seeded init. Returns (history, trainer)."""
     device = resolve_device(getattr(args, "dev", "cuda"))

@@ -11,8 +11,10 @@ harmonics), which ``Predictor`` serves through kernel B3. ``--dev``
 defaults to ``cuda`` and raises without a card; ``--dev cpu`` runs on the
 CPU.
 
-Flags of later slices raise NotImplementedError naming their ROADMAP item:
-``--loss_type angle`` (A9), ``--epochs_per_dispatch`` > 1 (A19).
+``--epochs_per_dispatch K`` runs K epochs with one host read (a chunk
+never straddles the teacher-forcing boundary) and checkpoints once a
+chunk. ``--loss_type angle`` raises NotImplementedError naming its ROADMAP
+item (A9).
 
 Usage: python -m motionmixerconv_tpu_torch.cli.train_autoreg_mixer_h36m \\
     --loss_type mpjpe --data_dir D --save_path S
@@ -66,7 +68,9 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--encoder_omega0", type=float, default=0.0)
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--epochs_per_dispatch", type=int, default=1,
-                        help="whole epochs per dispatch; only 1 is ported")
+                        help="whole epochs (train + val + test) per host "
+                             "read; a chunk never straddles the "
+                             "teacher-forcing boundary")
     return parser
 
 
@@ -100,8 +104,6 @@ def _refuse_unported(args) -> None:
     todo = []
     if args.loss_type == "angle":
         todo.append("--loss_type angle (ROADMAP queue A item 9)")
-    if args.epochs_per_dispatch > 1:
-        todo.append("--epochs_per_dispatch > 1 (ROADMAP queue A item 19)")
     if todo:
         raise NotImplementedError("not ported yet: " + ", ".join(todo))
 

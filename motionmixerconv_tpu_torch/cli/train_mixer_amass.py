@@ -4,8 +4,8 @@ Counterpart of ``motionmixerconv_tpu/cli/train_mixer_amass.py``: the same
 flag surface (amass/train_mixer_amass.py:203-267; hidden 128, 5 blocks,
 tokens 20, channels 128, pose_dim 54, gelu, batch 200) and the two-stage
 parser. ``--dev`` defaults to ``cuda`` and raises without a card; ``--dev
-cpu`` runs on the CPU. ``--epochs_per_dispatch`` > 1 raises naming ROADMAP
-item A19. ``--model_path`` names an extra copy of ``train_state.pt``; unset
+cpu`` runs on the CPU. ``--epochs_per_dispatch K`` runs K epochs with one
+host read and checkpoints once a chunk. ``--model_path`` names an extra copy of ``train_state.pt``; unset
 by default (the JAX CLI's default points at its own ``.ckpt``).
 
 Usage: python -m motionmixerconv_tpu_torch.cli.train_mixer_amass \\
@@ -46,13 +46,15 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--gamma", type=float, default=0.1)
     parser.add_argument("--clip_grad", type=float, default=None)
     parser.add_argument("--model_path", type=str, default=None,
-                        help="also write train_state.pt here every epoch")
+                        help="also write train_state.pt here at every "
+                             "checkpoint")
     parser.add_argument("--batch_size_test", type=int, default=256)
     parser.add_argument("--loss_type", type=str, default="mpjpe",
                         choices=["mpjpe"])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--epochs_per_dispatch", type=int, default=1,
-                        help="whole epochs per dispatch; only 1 is ported")
+                        help="whole epochs (train + val + test) per host "
+                             "read; checkpoints once per chunk")
 
     args, _ = parser.parse_known_args(argv)
     stage2 = argparse.ArgumentParser(parents=[parser])

@@ -7,9 +7,11 @@ parser whose per-loss defaults differ (mpjpe: hidden 50 / blocks 4 / lr
 ``cuda`` and raises without a card; ``--dev cpu`` runs on the CPU.
 
 ``--model_type mlp`` trains an MlpMixer on the 66 dims (``build_mlp_mixer``,
-as the JAX CLI does). Flags of later slices raise NotImplementedError
-naming their ROADMAP item: ``--loss_type angle`` (A9), ``--visualize``
-(A16), ``--epochs_per_dispatch`` > 1 and ``--embed_dtype bf16`` (A19).
+as the JAX CLI does). ``--epochs_per_dispatch K`` runs K epochs with one
+host read and checkpoints once a chunk; on the card every step and
+evaluation batch replays a captured CUDA graph whatever K. Flags of later
+slices raise NotImplementedError naming their ROADMAP item: ``--loss_type
+angle`` (A9), ``--visualize`` (A16).
 
 Usage: python -m motionmixerconv_tpu_torch.cli.train_mixer_h36m \\
     --loss_type mpjpe --fused_encoder --data_dir D --save_path S
@@ -61,7 +63,8 @@ def build_parser() -> argparse.ArgumentParser:
                         choices=["conv", "mlp"])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--epochs_per_dispatch", type=int, default=1,
-                        help="whole epochs per dispatch; only 1 is ported")
+                        help="whole epochs (train + val + test) per host "
+                             "read; checkpoints once per chunk")
     parser.add_argument("--visualize", action="store_true",
                         help="export prediction-vs-gt GIFs (not ported)")
     parser.add_argument("--resume", type=str, default=None,
@@ -78,7 +81,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--embed_dtype", default="f32",
                         choices=("f32", "bf16"),
                         help="storage dtype of the materialized harmonic "
-                             "embedding (only f32 is ported)")
+                             "embedding (not with --fused_encoder)")
     return parser
 
 
@@ -116,10 +119,6 @@ def _refuse_unported(args) -> None:
         todo.append("--loss_type angle (ROADMAP queue A item 9)")
     if args.visualize:
         todo.append("--visualize (ROADMAP queue A item 16)")
-    if args.epochs_per_dispatch > 1:
-        todo.append("--epochs_per_dispatch > 1 (ROADMAP queue A item 19)")
-    if args.embed_dtype != "f32":
-        todo.append("--embed_dtype bf16 (ROADMAP queue A item 19)")
     if todo:
         raise NotImplementedError("not ported yet: " + ", ".join(todo))
 

@@ -7,6 +7,8 @@ a closed-form lookup and its sequential delta decode a ``cumsum``.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -45,13 +47,20 @@ _AUC_SUFFIX = np.concatenate(
     [np.cumsum(_AUC_W[::-1])[::-1], [0.0]]).astype(np.float32)  # (300,)
 
 
+@functools.lru_cache(maxsize=None)
+def _auc_tables(device: torch.device):
+    """The grid and the suffix weights on ``device``, copied there once: a
+    host-to-device copy cannot run inside a captured CUDA graph."""
+    return (torch.as_tensor(_AUC_GRID, device=device),
+            torch.as_tensor(_AUC_SUFFIX, device=device))
+
+
 def auc_pck_from_dist(dist: torch.Tensor, dim=None) -> torch.Tensor:
     """AUC-PCK from joint distances, the exact trapz value. ``dim=None``
     averages over every distance; a tuple over those dims only (e.g.
     per-sample curves). A NaN distance lands in the terminal bucket (zero
     credit), as the JAX package's broadcast count puts it."""
-    grid = torch.as_tensor(_AUC_GRID, device=dist.device)
-    suffix = torch.as_tensor(_AUC_SUFFIX, device=dist.device)
+    grid, suffix = _auc_tables(dist.device)
     k = torch.searchsorted(grid, dist.contiguous(), side="left")
     k = torch.where(torch.isnan(dist), torch.full_like(k, 299), k)
     vals = suffix[k]

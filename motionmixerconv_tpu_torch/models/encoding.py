@@ -88,7 +88,7 @@ class PoseEncoder(nn.Module):
         if dtype is not None:
             raise NotImplementedError(
                 "compute dtype (bf16 mixed precision) is not ported yet; "
-                "the port runs float32")
+                "the port runs float32 (ROADMAP queue A item 21)")
         nh = n_harmonic_functions
         if harmonic_impl != "direct" and precomputed and nh > 0:
             raise ValueError(
@@ -125,13 +125,25 @@ class PoseEncoder(nn.Module):
         self._imajor_key = None  # (device, data_ptr, version) it came from
 
     def kernel_weight(self) -> torch.Tensor:
-        """``embed_mlp.weight`` in the fused kernel's i-major layout, rebuilt
-        only when the parameter moves or changes in place."""
+        """``embed_mlp.weight`` in the fused kernel's i-major layout.
+
+        Rebuilt on every call in training mode and while a CUDA graph is
+        being captured, so that a training step and a captured forward
+        reorder the weight on the device each time they run (a replay does
+        not re-run this host code, nor does it bump the parameter's
+        version). Otherwise (serving) kept until the parameter moves or
+        changes in place."""
+        from ..ops.harmonic import reorder_weight
+
         w = self.embed_mlp.weight
+        if self.training or (w.is_cuda
+                             and torch.cuda.is_current_stream_capturing()):
+            self._imajor_key = None
+            with torch.no_grad():
+                return reorder_weight(w, self.n_harmonic_functions,
+                                      self.dimPosIn)
         key = (w.device, w.data_ptr(), w._version)
         if key != self._imajor_key:
-            from ..ops.harmonic import reorder_weight
-
             with torch.no_grad():
                 self._imajor = reorder_weight(
                     w, self.n_harmonic_functions, self.dimPosIn)

@@ -167,7 +167,7 @@ class MlpMixer(nn.Module):
         if dtype is not None:
             raise NotImplementedError(
                 "compute dtype (bf16 mixed precision) is not ported yet; "
-                "the port runs float32")
+                "the port runs float32 (ROADMAP queue A item 21)")
         self.num_classes, self.num_blocks = num_classes, num_blocks
         self.hidden_dim = hidden_dim
         self.tokens_mlp_dim = tokens_mlp_dim

@@ -7,8 +7,8 @@ Counterpart of ``make_fused_harmonic_dense`` in
 without writing the (R, 2nD) embedding to device memory. It takes the
 weights i-major, (2, n, D, E): ``reorder_weight`` turns torch's (E, 2nD)
 ``embed_mlp.weight`` (feature index s*nD + d*n + i) into that layout, and
-``PoseEncoder`` keeps the result until the parameter changes, so a call
-launches only the kernel. The backward kernels compute dW (straight into
+``PoseEncoder`` keeps the result in eval mode until the parameter changes,
+so a serving call launches only the kernel. The backward kernels compute dW (straight into
 torch's layout), db and, only when the input needs a gradient, dx; the
 plain backward writes the same formula out rather than differentiating
 ``harmonic_features``, whose doubling recurrence autograd would

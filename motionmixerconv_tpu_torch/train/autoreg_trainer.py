@@ -17,7 +17,9 @@ parameters. Plain torch would move them on every one of the rollout's
 forwards.
 
 Training and evaluation run the plain ``nn.Module`` forward with autograd;
-the fused kernels are inference only. The angle kinds (ROADMAP queue A
+the fused kernels are inference only. On a CUDA device a step (teacher
+forcing or closed loop, one graph each) and an evaluation batch are
+captured CUDA graphs, replayed once per batch, as in ``Trainer``. The angle kinds (ROADMAP queue A
 item 9) and the mesh (item 17) raise, as in ``Trainer``.
 """
 
@@ -27,7 +29,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..data.windows import WindowedCorpus, batch_starts, gather_windows
+from ..data.windows import WindowedCorpus, gather_windows
 from ..models.common import frozen_running_stats
 from .autoregressive import autoregressive_rollout
 from .loop import PerSample, Trainer, _per_sample_auc_pck, _per_sample_mpjpe, _wmean
@@ -76,11 +78,14 @@ class AutoregressiveTrainer(Trainer):
 
     # ------------------------------------------------------------ train step
 
-    def train_step_ar(self, frames: torch.Tensor, starts: torch.Tensor,
-                      w: torch.Tensor, teacher_forcing: bool) -> torch.Tensor:
-        """One optimizer step of the rollout loss on the windows at
-        ``starts`` (weights ``w``); returns the weighted mean loss as a
-        device scalar (no host sync)."""
+    def _train_loss(self, frames: torch.Tensor, starts: torch.Tensor,
+                    w: torch.Tensor, teacher_forcing=None) -> torch.Tensor:
+        """The weighted mean rollout loss of the windows at ``starts``,
+        after the once-per-step BatchNorm harvest. ``teacher_forcing`` is
+        fixed in a captured step, as the JAX trainer binds it statically;
+        so is ``frozen_running_stats``, a host attribute set at capture."""
+        if teacher_forcing is None:
+            raise ValueError("the autoregressive step needs teacher_forcing")
         seq = self._sequence(frames, starts)
         if self._has_bn:
             # the once-per-step running-stats harvest, before the update
@@ -88,30 +93,30 @@ class AutoregressiveTrainer(Trainer):
                 self.model(seq[:, : self.input_n_model])
         with frozen_running_stats(self.model):
             per_sample, _ = self._rollout(seq, teacher_forcing)
-        loss = _wmean(per_sample, w) * self.loss_scale
-        self.optimizer.zero_grad()
-        loss.backward()
-        self.optimizer.step()
-        return loss.detach()
+        return _wmean(per_sample, w) * self.loss_scale
+
+    def train_step_ar(self, frames: torch.Tensor, starts: torch.Tensor,
+                      w: torch.Tensor, teacher_forcing: bool) -> torch.Tensor:
+        """One optimizer step of the rollout loss on the windows at
+        ``starts`` (weights ``w``); returns the weighted mean loss as a
+        device scalar (no host sync)."""
+        loss = self._step(frames, starts, w, teacher_forcing)
+        self.optimizer.advance()
+        return loss
 
     def train_epoch_ar(self, corpus: WindowedCorpus, frames: torch.Tensor,
-                       batch_size: int, seed: int,
-                       teacher_forcing: bool) -> float:
+                       batch_size: int, seed: int, teacher_forcing: bool,
+                       scan: bool = True) -> float:
         """One epoch over the windows, shuffled by ``seed``; returns the
-        sample-weighted mean train loss, the epoch's one host sync. A
-        non-finite loss raises FloatingPointError (the reference's
-        ``assert not isnan(loss)``, train_autoreg_mixer_h36m.py:256)."""
-        all_s, all_w = zip(*batch_starts(corpus, batch_size, shuffle=True,
-                                         seed=seed))
-        starts = self._to_device(np.stack(all_s), torch.long)
-        w = self._to_device(np.stack(all_w), torch.float32)
-        counts = [float(x.sum()) for x in all_w]
-        self.model.train()
-        total = torch.zeros((), device=self.device)
-        for i, k in enumerate(counts):
-            total += self.train_step_ar(frames, starts[i], w[i],
-                                        teacher_forcing) * k
-        mean_loss = float(total) / max(sum(counts), 1.0)
+        sample-weighted mean train loss, the epoch's one host read. On a
+        CUDA device ``scan`` replays one captured step per batch, a graph
+        for each value of ``teacher_forcing``. A non-finite loss raises
+        FloatingPointError (the reference's ``assert not isnan(loss)``,
+        train_autoreg_mixer_h36m.py:256)."""
+        starts, w = self._epoch_batches(corpus, batch_size, [seed])
+        total, n = self._train_sums(frames, starts[0], w[0], teacher_forcing,
+                                    scan).tolist()
+        mean_loss = total / max(n, 1.0)
         if not np.isfinite(mean_loss):
             # closed-loop gradients can explode through the feedback rollout
             raise FloatingPointError(

@@ -10,11 +10,16 @@ rows, and every loss and metric is computed per sample, then
 weight-averaged, so padded results equal the reference's ragged-batch
 averages.
 
+On a CUDA device ``train_epoch``, ``validate``, ``evaluate_grouped`` and
+``run_epochs_fused`` replay a captured CUDA graph of one step (one
+evaluation batch) per batch (``train/graphs.py``), the counterpart of the
+JAX package's ``lax.scan`` over batches; their ``scan=False`` launches
+every step op by op, as the JAX package's does. ``run_epochs_fused`` runs
+K epochs of train, validation and grouped test and reads their results
+back once.
+
 Not ported in this slice, each raising NotImplementedError: the mesh
-(data-parallel) path, ``run_epochs_fused`` (whole epochs per dispatch) and
-the angle loss with its euler evaluation. The JAX package's scan and
-prefetch epoch variants have no eager counterpart: PyTorch issues each
-step's gather on the stream ahead of its compute already.
+(data-parallel) path and the angle loss with its euler evaluation.
 
 Reference call-stack parity: h36m/train_mixer_h36m.py:47-279 (train),
 :282-417 (test_mpjpe).
@@ -22,7 +27,8 @@ Reference call-stack parity: h36m/train_mixer_h36m.py:47-279 (train),
 
 from __future__ import annotations
 
-from typing import Callable
+import hashlib
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -31,6 +37,7 @@ from torch import nn
 from ..data.constants import H36M_INDEX_TO_EQUAL_EVAL, H36M_INDEX_TO_IGNORE_EVAL
 from ..data.windows import WindowedCorpus, batch_starts, gather_windows
 from ..metrics.metrics import auc_pck_from_dist, delta_2_gt
+from .graphs import StepGraph
 from .optim import Optimizer
 
 ANGLE_TODO = ("the angle loss and its euler/joint-angle evaluation land with "
@@ -70,7 +77,8 @@ class Trainer:
     Args:
         model: maps (B, input_n, len(dim_used)) -> (B, output_n,
             len(dim_used)); it lives on the training device.
-        optimizer: ``train.optim.Optimizer`` over the model's parameters.
+        optimizer: ``train.optim.Optimizer`` over the model's parameters
+            (None for a trainer that only evaluates).
         loss_type: 'mpjpe' ('angle' is a later slice and raises).
         dim_used: indices into the corpus feature axis fed to the model.
         input_n / output_n: window split.
@@ -82,7 +90,7 @@ class Trainer:
         mesh: the data-parallel path is a later slice and raises.
     """
 
-    def __init__(self, model: nn.Module, optimizer: Optimizer, *,
+    def __init__(self, model: nn.Module, optimizer: Optional[Optimizer], *,
                  loss_type: str, dim_used, input_n: int, output_n: int,
                  input_scale: float = 1.0, loss_scale: float = 1.0,
                  delta_x: bool = False, mesh=None):
@@ -106,6 +114,12 @@ class Trainer:
         self.device = next(model.parameters()).device
         self._dim_used = torch.as_tensor(self.dim_used, dtype=torch.long,
                                          device=self.device)
+        self._ignore = torch.as_tensor(H36M_INDEX_TO_IGNORE_EVAL,
+                                       device=self.device)
+        self._equal = torch.as_tensor(H36M_INDEX_TO_EQUAL_EVAL,
+                                      device=self.device)
+        self._graphs: dict = {}
+        self._eval_stacks: dict = {}
 
     @property
     def seq_len(self) -> int:
@@ -132,45 +146,144 @@ class Trainer:
 
     # ------------------------------------------------------------ train step
 
+    def _train_loss(self, frames: torch.Tensor, starts: torch.Tensor,
+                    w: torch.Tensor, teacher_forcing=None) -> torch.Tensor:
+        """The weighted mean train loss of the windows at ``starts``."""
+        model_in, seq_gt, last = self._prepare(
+            gather_windows(frames, starts, self.seq_len))
+        pred = self._predict(model_in, last)
+        return _wmean(_per_sample_mpjpe(pred, seq_gt), w) * self.loss_scale
+
+    def _step(self, frames: torch.Tensor, starts: torch.Tensor,
+              w: torch.Tensor, teacher_forcing=None,
+              sums: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The device work of one optimizer step (the body a CUDA graph
+        captures): forward, loss, backward, clip and Adam; adds (loss * sum
+        w, sum w) into ``sums``. Returns the loss as a device scalar."""
+        loss = self._train_loss(frames, starts, w, teacher_forcing)
+        self.optimizer.zero_grad()
+        loss.backward()
+        self.optimizer.update()
+        loss = loss.detach()
+        if sums is not None:
+            n = w.sum()
+            sums += torch.stack([loss * n, n])
+        return loss
+
     def train_step(self, frames: torch.Tensor, starts: torch.Tensor,
                    w: torch.Tensor) -> torch.Tensor:
         """One optimizer step on the windows at ``starts`` (weights ``w``);
         returns the weighted mean loss as a device scalar (no host sync)."""
-        model_in, seq_gt, last = self._prepare(
-            gather_windows(frames, starts, self.seq_len))
-        pred = self._predict(model_in, last)
-        loss = _wmean(_per_sample_mpjpe(pred, seq_gt), w) * self.loss_scale
-        self.optimizer.zero_grad()
-        loss.backward()
-        self.optimizer.step()
-        return loss.detach()
+        loss = self._step(frames, starts, w)
+        self.optimizer.advance()
+        return loss
+
+    def _epoch_batches(self, corpus: WindowedCorpus, batch_size: int,
+                       seeds: Sequence[int]):
+        """(len(seeds), n_batches, B) starts and weights of the shuffled
+        epochs, copied to the device at once."""
+        all_s, all_w = [], []
+        for seed in seeds:
+            s, w = zip(*batch_starts(corpus, batch_size, shuffle=True,
+                                     seed=seed))
+            all_s.append(np.stack(s))
+            all_w.append(np.stack(w))
+        return (self._to_device(np.stack(all_s), torch.long),
+                self._to_device(np.stack(all_w), torch.float32))
+
+    def _runner(self, key: tuple, frames: torch.Tensor, body,
+                sums_shape, scan: bool) -> StepGraph:
+        """The step runner for ``body``: on a CUDA device with ``scan`` the
+        graph cached under ``key`` and the corpus ``frames`` it reads (the
+        graph holds the corpus, so its address stays that corpus's), else
+        an eager one."""
+        if not (scan and self.device.type == "cuda"):
+            return StepGraph(body, self.device, sums_shape, capture=False)
+        key = (*key, frames.data_ptr(), tuple(frames.shape))
+        runner = self._graphs.get(key)
+        if runner is None:
+            runner = self._graphs[key] = StepGraph(
+                body, self.device, sums_shape, capture=True)
+        return runner
+
+    def _train_sums(self, frames: torch.Tensor, starts: torch.Tensor,
+                    w: torch.Tensor, teacher_forcing=None,
+                    scan: bool = True) -> torch.Tensor:
+        """One epoch's steps over (n_batches, B) ``starts``/``w``; returns
+        the device sums (loss * sum w, sum w) without a host read."""
+        self.model.train()
+        runner = self._runner(
+            ("train", teacher_forcing, w.shape[1],
+             self.optimizer.generation), frames,
+            lambda sums, s, ww: self._step(frames, s, ww, teacher_forcing,
+                                           sums), (2,), scan)
+        sums = runner.run(starts, w, after=self.optimizer.advance)
+        if runner.graph is not None:
+            # replays updated the parameters in place without bumping their
+            # version counters, which version-keyed caches read
+            for p in self.model.parameters():
+                torch.autograd.graph.increment_version(p)
+        return sums
 
     def train_epoch(self, corpus: WindowedCorpus, frames: torch.Tensor,
-                    batch_size: int, seed: int) -> float:
+                    batch_size: int, seed: int, scan: bool = True) -> float:
         """One epoch over the windows, shuffled by ``seed``; returns the
         sample-weighted mean train loss (train_mixer_h36m.py:195-197), the
-        epoch's one host sync."""
-        all_s, all_w = zip(*batch_starts(corpus, batch_size, shuffle=True,
-                                         seed=seed))
-        starts = self._to_device(np.stack(all_s), torch.long)
-        w = self._to_device(np.stack(all_w), torch.float32)
-        counts = [float(x.sum()) for x in all_w]
-        self.model.train()
-        total = torch.zeros((), device=self.device)
-        for i, k in enumerate(counts):
-            total += self.train_step(frames, starts[i], w[i]) * k
-        return float(total) / max(sum(counts), 1.0)
+        epoch's one host read. ``scan`` (on a CUDA device) replays a
+        captured step per batch, the JAX scan's counterpart; ``scan=False``
+        launches each step op by op."""
+        starts, w = self._epoch_batches(corpus, batch_size, [seed])
+        total, n = self._train_sums(frames, starts[0], w[0], scan=scan).tolist()
+        return total / max(n, 1.0)
 
-    def run_epochs_fused(self, *args, **kwargs):
-        raise NotImplementedError(
-            "whole epochs per dispatch (--epochs_per_dispatch > 1) land as "
-            "CUDA graphs in a later PR (ROADMAP queue A item 19)")
+    def run_epochs_fused(self, corpus: WindowedCorpus, frames: torch.Tensor,
+                         batch_size: int, seeds: Sequence[int],
+                         vald: WindowedCorpus, vframes: torch.Tensor,
+                         tframes: torch.Tensor, test_starts: np.ndarray,
+                         test_gids: np.ndarray, n_groups: int,
+                         test_kind: str, batch_size_test: int,
+                         teacher_forcing=None, scan: bool = True) -> dict:
+        """``len(seeds)`` whole epochs (train, validation and the grouped
+        test of ``test_kind`` each) with one host read at the end: the JAX
+        ``run_epochs_fused`` without its ``state``. ``seeds``: one shuffle
+        seed per epoch (the drivers pass the epoch index, as
+        ``train_epoch(seed=epoch)``). ``teacher_forcing``: None for the
+        direct trainer, the chunk's flag for the autoregressive one.
+
+        Returns numpy arrays of leading dimension K: ``train`` and ``val``
+        (the losses ``train_epoch`` and ``validate`` return) and the
+        per-group test sums ``m1``, ``m2``, ``n`` of ``evaluate_grouped``.
+        """
+        starts, w = self._epoch_batches(corpus, batch_size, seeds)
+        vgids = np.zeros(len(vald), np.int64)
+        rows = []
+        for k in range(len(seeds)):
+            tr = self._train_sums(frames, starts[k], w[k], teacher_forcing,
+                                  scan)
+            va = self._eval_sums(vframes, vald.window_starts, vgids, 1,
+                                 batch_size, "val", scan)
+            te = self._eval_sums(tframes, test_starts, test_gids, n_groups,
+                                 batch_size_test, test_kind, scan)
+            rows.append(torch.cat([tr, va.flatten(), te.flatten()]))
+        out = torch.stack(rows).cpu().numpy()  # the chunk's one host read
+        tr, va = out[:, :2].astype(np.float64), out[:, 2:5]
+        te = out[:, 5:].reshape(len(seeds), 3, n_groups)
+        return {"train": tr[:, 0] / np.maximum(tr[:, 1], 1.0),
+                "val": va[:, 0] / np.maximum(va[:, 2], 1.0),
+                "m1": te[:, 0], "m2": te[:, 1], "n": te[:, 2]}
 
     # ------------------------------------------------------------ evaluation
 
     def _stack_eval_batches(self, window_starts: np.ndarray,
                             group_ids: np.ndarray, batch_size: int):
-        """Pad eval windows to (n_batches, bs) device tensors."""
+        """Pad eval windows to (n_batches, bs) device tensors, kept per
+        content (as the JAX package keeps its fused evaluation stacks), so
+        that an evaluation set is copied to the device once."""
+        key = (_content_key(window_starts), _content_key(group_ids),
+               batch_size)
+        hit = self._eval_stacks.get(key)
+        if hit is not None:
+            return hit
         n = len(window_starts)
         bs = max(1, min(batch_size, n))
         n_batches = (n + bs - 1) // bs
@@ -178,30 +291,44 @@ class Trainer:
         starts = np.concatenate([window_starts, np.zeros(pad, np.int64)])
         w = np.concatenate([np.ones(n, np.float32), np.zeros(pad, np.float32)])
         gids = np.concatenate([group_ids, np.zeros(pad, np.int64)])
-        return (self._to_device(starts.reshape(n_batches, bs), torch.long),
-                self._to_device(w.reshape(n_batches, bs), torch.float32),
-                self._to_device(gids.reshape(n_batches, bs), torch.long))
+        hit = self._eval_stacks[key] = (
+            self._to_device(starts.reshape(n_batches, bs), torch.long),
+            self._to_device(w.reshape(n_batches, bs), torch.float32),
+            self._to_device(gids.reshape(n_batches, bs), torch.long))
+        return hit
 
-    @torch.no_grad()
+    def _eval_sums(self, frames: torch.Tensor, window_starts: np.ndarray,
+                   group_ids: np.ndarray, n_groups: int, batch_size: int,
+                   kind: str, scan: bool = True) -> torch.Tensor:
+        """(3, n_groups) device sums of the two per-sample metrics of
+        ``kind`` times the weights, and of the weights, per group; no host
+        read."""
+        per_sample = self._per_sample_for_kind(kind)
+        starts, w, gids = self._stack_eval_batches(
+            window_starts, group_ids, batch_size)
+
+        def body(sums, s, ww, g):
+            with torch.no_grad():
+                per1, per2 = per_sample(frames, s)
+                sums[0].index_add_(0, g, per1 * ww)
+                sums[1].index_add_(0, g, per2 * ww)
+                sums[2].index_add_(0, g, ww)
+
+        self.model.eval()
+        return self._runner(("eval", kind, n_groups, starts.shape[1]), frames,
+                            body, (3, n_groups), scan).run(starts, w, gids)
+
     def evaluate_grouped(self, frames: torch.Tensor, window_starts: np.ndarray,
                          group_ids: np.ndarray, n_groups: int,
-                         batch_size: int, kind: str):
+                         batch_size: int, kind: str, scan: bool = True):
         """Per-group (e.g. per-action) sums of two per-sample metrics and of
         the weights, accumulated on the device by ``index_add_`` and read
         back once. Returns (m1_per_group, m2_per_group, n_per_group) numpy
         arrays (train_mixer_h36m.py:311-323 evaluates each action with its
-        own loader; here every group's windows share one corpus)."""
-        per_sample = self._per_sample_for_kind(kind)
-        starts, w, gids = self._stack_eval_batches(
-            window_starts, group_ids, batch_size)
-        self.model.eval()
-        sums = torch.zeros((3, n_groups), device=self.device)
-        for i in range(starts.shape[0]):
-            per1, per2 = per_sample(frames, starts[i])
-            sums[0].index_add_(0, gids[i], per1 * w[i])
-            sums[1].index_add_(0, gids[i], per2 * w[i])
-            sums[2].index_add_(0, gids[i], w[i])
-        out = sums.cpu().numpy()
+        own loader; here every group's windows share one corpus). ``scan``
+        as in ``train_epoch``."""
+        out = self._eval_sums(frames, window_starts, group_ids, n_groups,
+                              batch_size, kind, scan).cpu().numpy()
         return out[0], out[1], out[2]
 
     def _per_sample_for_kind(self, kind: str) -> PerSample:
@@ -225,22 +352,29 @@ class Trainer:
         per = _per_sample_mpjpe(pred, seq_gt) * self.loss_scale
         return per, per
 
-    def _test_h36m_xyz_per_sample(self, frames, starts):
-        """Full-skeleton 32-joint MPJPE + 22-joint AUC-PCK per sample
-        (train_mixer_h36m.py:324-397)."""
+    def h36m_xyz_outputs(self, frames, starts):
+        """(prediction, dim_used ground truth, per-sample full-skeleton
+        32-joint MPJPE) of the windows at ``starts``: the prediction is
+        written into the 32-joint ground truth and the ignored joints are
+        re-inserted from their equals (train_mixer_h36m.py:324-397)."""
         batch, pred, seq_gt = self._forward_eval(frames, starts)
         full_gt = batch[:, self.input_n : self.input_n + self.output_n]
-        ignore = torch.as_tensor(H36M_INDEX_TO_IGNORE_EVAL, device=self.device)
-        equal = torch.as_tensor(H36M_INDEX_TO_EQUAL_EVAL, device=self.device)
         all_seq = full_gt.clone()
         all_seq[:, :, self._dim_used] = pred
-        all_seq[:, :, ignore] = all_seq[:, :, equal]
+        all_seq[:, :, self._ignore] = all_seq[:, :, self._equal]
         all_gt = full_gt.clone()
-        all_gt[:, :, ignore] = full_gt[:, :, equal]
+        all_gt[:, :, self._ignore] = full_gt[:, :, self._equal]
         b = all_seq.shape[0]
         per_mpjpe = _per_sample_mpjpe(
             all_seq.reshape(b, self.output_n, 32, 3),
             all_gt.reshape(b, self.output_n, 32, 3))
+        return pred, seq_gt, per_mpjpe
+
+    def _test_h36m_xyz_per_sample(self, frames, starts):
+        """Full-skeleton 32-joint MPJPE + 22-joint AUC-PCK per sample
+        (train_mixer_h36m.py:324-397)."""
+        pred, seq_gt, per_mpjpe = self.h36m_xyz_outputs(frames, starts)
+        b = pred.shape[0]
         per_auc = _per_sample_auc_pck(
             pred.reshape(b, self.output_n, -1, 3) / 1000.0,
             seq_gt.reshape(b, self.output_n, -1, 3) / 1000.0)
@@ -275,3 +409,9 @@ class Trainer:
             frames, corpus.window_starts, np.zeros(len(corpus), np.int64), 1,
             batch_size, "val")
         return float(m1[0] / max(nn_[0], 1.0))
+
+
+def _content_key(a) -> tuple:
+    """A key for an array's content (not its id, which CPython recycles)."""
+    a = np.ascontiguousarray(a)
+    return a.shape, a.dtype.str, hashlib.sha1(a.tobytes()).hexdigest()

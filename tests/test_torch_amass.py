@@ -179,17 +179,13 @@ def test_train_state_serves_through_b4(runs):
     torch.testing.assert_close(p.predict(x), want, rtol=0, atol=2e-5)
 
 
-def test_cli_defaults_to_the_card_and_refuses_fused_epochs(amass_dir,
-                                                           tmp_path):
-    """--dev defaults to cuda and raises without a card; whole epochs per
-    dispatch raise naming item 19."""
+def test_cli_defaults_to_the_card(amass_dir, tmp_path):
+    """--dev defaults to cuda and raises without a card; the CLI's defaults
+    are the reference's."""
     argv = ["--data_dir", amass_dir, "--n_epochs", "1", *SMALL]
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             cli.main([*argv, "--save_path", str(tmp_path / "a")])
-    with pytest.raises(NotImplementedError, match="item 19"):
-        cli.main([*argv, "--save_path", str(tmp_path / "b"), "--dev", "cpu",
-                  "--epochs_per_dispatch", "2"])
     args = cli.parse_args([])
     assert (args.hidden_dim, args.num_blocks, args.tokens_mlp_dim,
             args.channels_mlp_dim, args.pose_dim, args.batch_size,

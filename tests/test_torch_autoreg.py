@@ -319,7 +319,6 @@ def test_cli_defaults_equal_the_jax_cli():
 
 @pytest.mark.parametrize("flags,item", [
     (("--loss_type", "angle"), "item 9"),
-    (("--epochs_per_dispatch", "2"), "item 19"),
 ])
 def test_cli_refuses_unported_flags(tmp_path, flags, item):
     argv = ["--data_dir", str(tmp_path), "--save_path", str(tmp_path),

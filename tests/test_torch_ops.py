@@ -158,9 +158,10 @@ def test_fused_encoder_matches_plain_encoder():
 
 
 def test_encoder_keeps_the_kernel_weight_until_it_changes():
-    """The i-major weight the kernel reads is reordered once, not per call,
-    and rebuilt after the parameter changes in place or is reloaded."""
-    enc = PoseEncoder(5, 7, n_harmonic_functions=3, fused=True)
+    """In eval mode (serving) the i-major weight the kernel reads is
+    reordered once, not per call, and rebuilt after the parameter changes
+    in place or is reloaded."""
+    enc = PoseEncoder(5, 7, n_harmonic_functions=3, fused=True).eval()
     first = enc.kernel_weight()
     assert enc.kernel_weight() is first
     torch.testing.assert_close(

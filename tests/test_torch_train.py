@@ -184,8 +184,6 @@ def test_trainer_refuses_what_is_not_ported():
     with pytest.raises(NotImplementedError, match="item 9"):
         Trainer(model, opt, loss_type="angle", **kw)
     trainer = Trainer(model, opt, loss_type="mpjpe", **kw)
-    with pytest.raises(NotImplementedError, match="item 19"):
-        trainer.run_epochs_fused()
     frames = torch.zeros(40, 96)
     with pytest.raises(NotImplementedError, match="item 9"):
         trainer.evaluate_grouped(frames, np.zeros(2, np.int64),
@@ -304,8 +302,6 @@ def test_cli_defaults_to_the_card(h36m_dir, tmp_path):
 @pytest.mark.parametrize("flags,item", [
     (("--loss_type", "angle"), "item 9"),
     (("--visualize",), "item 16"),
-    (("--epochs_per_dispatch", "2"), "item 19"),
-    (("--embed_dtype", "bf16"), "item 19"),
 ])
 def test_cli_refuses_unported_flags(tmp_path, flags, item):
     argv = ["--data_dir", str(tmp_path), "--save_path", str(tmp_path),

@@ -3,14 +3,15 @@
 checkout of the repository, in turns on one card.
 
     python3 chip_ab.py --other path/to/other/checkout [--reps 20]
-        [--kernels B1,B2,B3,B4] [--step-seeds 4,11,12] [--b2-plans]
-        [--b3-plans]
+        [--kernels B1,B2,B3,B4] [--b1-shape 66,64,50] [--step-seeds 4,11,12]
+        [--b2-plans] [--b3-plans]
 
 Both trees' ``motionmixerconv_tpu_torch`` are imported side by side (the
 other one under the package name ``mmc_other``); each builds its kernels
 from its own ``csrc/`` into its own ``build/``. The cases: the harmonic
 encoder kernels B1-fwd and B1-bwd at the flagship encoder's shape (D = 66,
-n = 64, E = 50); the single-channel ConvMixer core B2 at B = 1, 7, 32 and
+n = 64, E = 50, or the D, n, E of ``--b1-shape``: 48,64,60 is the H36M angle
+encoder's); the single-channel ConvMixer core B2 at B = 1, 7, 32 and
 128 for the flagship and a BatchNorm + max-pool + 'once' model; the
 multi-channel ConvMixer core B3 at B = 1 and 128 for the autoregressive and
 the study shape; the fused MlpMixer B4 at B = 1, 32 and 128 for the AMASS
@@ -50,7 +51,6 @@ sys.path.insert(0, str(ROOT))
 
 import chip_smoke  # noqa: E402  (the tolerances, timers and card line)
 
-D, N, E = 66, 64, 50
 FWD_CASES = [("direct", 500), ("direct", 1280), ("direct", 2560),
              ("doubling", 500), ("doubling", 2560)]
 BWD_CASES = [("direct", 500, False), ("direct", 2560, False),
@@ -107,12 +107,13 @@ def turns(torch, reps, f_other, f_this, timer=None):
     return {"other": [t[0], t[3]], "this": [t[1], t[2]]}
 
 
-def b1_cases(torch, dev, reps):
-    """B1-fwd and B1-bwd at the flagship encoder's shape."""
+def b1_cases(torch, dev, reps, shape):
+    """B1-fwd and B1-bwd at the encoder shape (D, n, E)."""
     from motionmixerconv_tpu_torch.models.encoding import harmonic_frequencies
     from motionmixerconv_tpu_torch.ops import harmonic as this
 
     other = importlib.import_module("mmc_other.ops.harmonic")
+    D, N, E = shape
     gen = torch.Generator().manual_seed(chip_smoke.SEED)
     rows = max(r for _, r in FWD_CASES)
     x_all = (torch.randn(rows, D, generator=gen) * 0.5).to(dev)
@@ -136,7 +137,7 @@ def b1_cases(torch, dev, reps):
             if not err <= chip_smoke.TOL_B1:
                 chip_smoke.fail(f"B1-fwd {impl} R={r}: {err:.3e} from plain")
             results.append({
-                "kernel": "B1-fwd", "impl": impl, "rows": r,
+                "kernel": "B1-fwd", "shape": shape, "impl": impl, "rows": r,
                 "err_vs_plain": err,
                 "err_vs_other": float((got - old).abs().max()),
                 **turns(torch, reps, lambda: other.harmonic_dense_fwd(
@@ -163,7 +164,8 @@ def b1_cases(torch, dev, reps):
                     chip_smoke.fail(f"B1-bwd {impl} R={r} {name}: "
                                     f"{errs[name]:.3e} of max|ref|")
             results.append({
-                "kernel": "B1-bwd", "impl": impl, "rows": r, "dx": dx_on,
+                "kernel": "B1-bwd", "shape": shape, "impl": impl, "rows": r,
+                "dx": dx_on,
                 "rel_err_vs_plain": errs,
                 **turns(torch, reps, lambda: other.harmonic_dense_bwd(
                             x2d, gr, w, freqs, impl, wi, need_dx=dx_on),
@@ -425,6 +427,8 @@ def main() -> None:
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--kernels", default="B1,B2,B3,B4",
                     help="comma-separated kernels to time: B1, B2, B3, B4")
+    ap.add_argument("--b1-shape", default="66,64,50",
+                    help="B1's encoder shape D,n,E (the flagship's by default)")
     ap.add_argument("--step-seeds", default="",
                     help="comma-separated seeds for the phase-8 replay")
     ap.add_argument("--b2-plans", action="store_true",
@@ -455,7 +459,8 @@ def main() -> None:
 
     results = []
     if "B1" in kernels:
-        results += b1_cases(torch, dev, args.reps)
+        results += b1_cases(torch, dev, args.reps,
+                            tuple(int(v) for v in args.b1_shape.split(",")))
     if "B2" in kernels:
         results += b2_cases(torch, dev, args.reps)
     if "B3" in kernels:

@@ -19,8 +19,9 @@ gradient held to a float64 step of the same weights and inputs, [9] the training
 CLI (``--loss_type mpjpe --fused_encoder --epochs_per_dispatch 2``, 2 epochs
 at the defaults as one chunk, every step and evaluation batch a replay of a
 captured CUDA graph) on a synthetic H36M corpus, B1's device launches in
-that run counted from profiler traces of each of its training and
-evaluation calls (at least one of each a train step), the history held to
+that run counted by the kernels themselves on the device, read around
+each of its training and evaluation calls (at least one of each a train
+step), the history held to
 the same run in chunks of one epoch, its checkpoint served through B2 (launch
 counts reset just before and read just after), [10] training times, B1-fwd
 and B1-bwd times at 500 and 2560 rows with the profiler's device time of
@@ -48,15 +49,31 @@ widths on a synthetic corpus as one chunk, held to chunks of one epoch),
 its ``train_state.pt`` served through B4 in process and over HTTP with
 ``--arch auto`` (launch counts reset just before the CLI and read just after
 the serving), [16] B4, serving and AMASS training times, the graph path
-held to the eager one. Then one JSON line with every kernel's numbers, the card's
-name and power limit, and the result line. Any failure exits non-zero; with
+held to the eager one, [17] B1-fwd and B1-bwd (dW + db, and with dx; 500
+and 2560 rows), B2 (the angle ConvMixer, AIS direct and AIS
+autoregressive, at 1, 7, 32 and 128 samples) and B4 (the angle MlpMixer at
+1, 32 and 128) at the shapes the H36M angle and AIS paths give them,
+through the same checks and timers as phases 3-4, 6-7, 10, 14 and 16,
+[18] the main training CLI at
+its true defaults (``--loss_type angle``: 48 dims, hidden 60, 3 blocks, lr
+1e-2) with ``--fused_encoder --epochs_per_dispatch 2``, B1's device
+launches counted in its own run as in phase 9, its history held to chunks
+of one epoch, its ``train_state.pt`` served through B2 in process and over
+HTTP, [19] the angle autoregressive CLI at its defaults (conv_nChan 60,
+outside B3's domain: served by the plain forward, the refusal named), [20]
+both AIS CLIs at their default widths on a synthetic keypoint corpus with
+failed detections (frame 0 among them), each checkpoint served through B2
+(launch counts reset just before each CLI of 18-20 and read just after its
+serving), then the
+angle and AIS train steps' times and the angle graph held to its eager
+steps. Then one JSON line with every kernel's numbers, the card's name and
+power limit, and the result line. Any failure exits non-zero; with
 no CUDA device, or with the port's package missing beside this script, it
 exits at once and prints no result.
 """
 
 from __future__ import annotations
 
-import argparse
 import contextlib
 import json
 import shutil
@@ -98,11 +115,11 @@ TOL_GRAPH_PARAM = 1e-4
 TOL_GRAPH_EVAL = 1e-5
 TOL_EPD = 1e-4  # --epochs_per_dispatch 2 against 1, relative, per epoch
 EPD2 = ["--epochs_per_dispatch", "2"]  # the training CLIs' epochs as a chunk
-# B1's kernels counted in phase 9's profiler traces of the training CLI's
-# own run (at least one of each a train step), and the trainer methods each
-# of whose calls that run takes in a trace of its own
+# B1's kernels, counted on the device in the training CLIs' own runs
+# (phases 9 and 18: at least one of each a train step), and the trainer
+# methods around each of whose calls the counts are read
 B1_IN_RUN = ("harmonic_dense_fwd_kernel", "harmonic_dense_bwd_dw_kernel")
-TRACED_METHODS = ("_train_sums", "_eval_sums")
+COUNTED_METHODS = ("_train_sums", "_eval_sums")
 # the graph-against-eager trainers' schedule: a milestone half way
 GRAPH_SCHEDULE = dict(milestones=[1], steps_per_epoch=GRAPH_STEPS // 2)
 B1_BWD_ROWS = (500, 2560)  # a train step at batch 50; the 256-row bulk batch
@@ -135,6 +152,22 @@ B4_REPEATS = 100  # launches of each B4 case that must all equal the first
 # x 4 recordings of 600 frames at 50 fps (~25,500 train windows at skip 1)
 AMASS_CORPUS = dict(n_subjects=3, n_acts=4, n_frames=600)
 AMASS_ARGV = ["--n_epochs", "2"]  # the AMASS CLI at its defaults
+# phases 17-20: the H36M angle paths and AIS, each at its CLI's defaults.
+# B1 at the angle encoder's D, n, E; the AIS corpus: all eight actions of
+# AIS_FRAMES keypoint frames, detections failing on AIS_FAIL_FRAMES (even,
+# so that --skip_rate 2 keeps them; frame 0 too, whose NaN no padding row
+# may read)
+B1_ANGLE_SHAPE = (48, 64, 60)
+B1_ANGLE_ROWS = (500, 2560)  # a train step at batch 50; 256 windows
+B2_NEW_TIMED = (1, 128)  # the batches phase 17 times B2 at
+ANGLE_ARGV = ["--fused_encoder"]  # the main CLI at its true defaults
+AR_ANGLE_ARGV = ["--loss_type", "angle", "--n_epochs", "2",
+                 "--n_epochs_teacher_forcing", "1", "--skip_rate", "5"]
+AIS_FRAMES = 3000
+AIS_FAIL_FRAMES = (0,) + tuple(range(120, AIS_FRAMES, 194))
+AIS_ARGV = ["--n_epochs", "2"]
+AIS_AR_ARGV = ["--n_epochs", "2", "--n_epochs_teacher_forcing", "1"]
+B4_ANGLE_BATCHES = (1, 32, 128)
 DEVICE = "cuda:0"  # the one card the script needs
 # H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores, HBM3
 PEAK_F32_FLOPS = 67e12
@@ -499,42 +532,29 @@ def dropout_replays(torch, dev, model) -> tuple:
     return tuple(shares)
 
 
-def profiled_launches(torch, run, names) -> tuple:
-    """(``run()``'s result, the device launches of each kernel named in
-    ``names`` (by substring) in a torch.profiler trace of ``run()``)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        out = run()
-        torch.cuda.synchronize()
-    events = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
-    return out, {n: sum(n in e for e in events) for n in names}
-
-
 @contextlib.contextmanager
-def traced_launches(torch, cls, methods, names):
-    """Yields {method: {kernel: device launches}}, the launches of each
-    kernel named in ``names`` (by substring) made by the calls of each of
-    ``cls``'s ``methods`` while the context is open. Every call is taken in
-    a torch.profiler trace of its own: one trace of a whole training run
-    (~500 kernels a step, ~1,000 steps) would outgrow the profiler's device
-    buffers. Replays of a CUDA graph show each of the graph's kernels in
-    the trace, which the launch counters of the Python wrappers cannot."""
-    counts = {m: dict.fromkeys(names, 0) for m in methods}
+def counted_launches(harmonic, cls, methods):
+    """Yields {method: {kernel: device launches}}: the launches of B1's
+    forward and dW kernels (B1_IN_RUN) made by the calls of each of
+    ``cls``'s ``methods`` while the context is open, as the kernels count
+    them on the device (``harmonic.device_launches``, read before and after
+    each call). Replays of a captured CUDA graph launch no wrapper, so the
+    Python counters cannot see them; the device counts every launch."""
+    counts = {m: dict.fromkeys(B1_IN_RUN, 0) for m in methods}
     saved = {m: getattr(cls, m) for m in methods}
 
-    def traced(m, fn):
+    def counted(m, fn):
         def call(*a, **k):
-            out, got = profiled_launches(torch, lambda: fn(*a, **k), names)
-            for n, c in got.items():
-                counts[m][n] += c
+            before = harmonic.device_launches()
+            out = fn(*a, **k)
+            after = harmonic.device_launches()
+            for name, b, n in zip(B1_IN_RUN, before, after):
+                counts[m][name] += n - b
             return out
         return call
 
     for m, fn in saved.items():
-        setattr(cls, m, traced(m, fn))
+        setattr(cls, m, counted(m, fn))
     try:
         yield counts
     finally:
@@ -773,12 +793,14 @@ def b1_bwd_work(rows: int, d: int, n: int, e: int, impl: str, with_dx: bool):
     return nbytes, ops
 
 
-def check_b1_plans(lib, harmonic, torch) -> str:
+def check_b1_plans(lib, harmonic, torch, shape=B1_SHAPE,
+                   rows_used=(*B1_FWD_ROWS, *B1_BWD_ROWS)) -> str:
     """Fail unless the library's B1 tiles and shared memory agree with the
-    wrapper's launch plans (``ops/harmonic.py``) at the flagship shape and
-    the rows phases 4, 7 and 10 use, and unless as many blocks fit an SM as
-    the plans count on; returns the plans in brief."""
-    d, n, e = B1_SHAPE
+    wrapper's launch plans (``ops/harmonic.py``) at ``shape`` (D, n, E; the
+    flagship's by default) and the rows ``rows_used`` (those phases 4, 7
+    and 10 use by default), and unless as many blocks fit an SM as the
+    plans count on; returns the plans in brief."""
+    d, n, e = shape
     consts = {"fwd_rows": harmonic.FWD_ROWS,
               "fwd_max_cols": harmonic.FWD_MAX_COLS,
               "dw_rows": harmonic.DW_ROWS,
@@ -788,7 +810,7 @@ def check_b1_plans(lib, harmonic, torch) -> str:
             fail(f"B1: the library's {k} is not the wrapper's {v}")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     out = []
-    for rows in sorted({*B1_FWD_ROWS, *B1_BWD_ROWS}):
+    for rows in sorted(set(rows_used)):
         fp = harmonic.fwd_plan(rows, d, e, n, sms)
         bp = harmonic.bwd_plan(rows, d, e, n, True, sms)
         resident = (lib.mmc_harmonic_resident_blocks(0, fp.threads, fp.smem),
@@ -812,6 +834,312 @@ def check_b1_plans(lib, harmonic, torch) -> str:
     return f"{sms} SMs; " + " ; ".join(out)
 
 
+def encoder_params(enc) -> tuple:
+    """(W, b, frequencies, the i-major weight the fused encoder keeps) of a
+    ``PoseEncoder``: B1's operands."""
+    return (enc.embed_mlp.weight.detach(), enc.embed_mlp.bias.detach(),
+            enc.frequencies, enc.kernel_weight())
+
+
+def check_b1_fwd(torch, harmonic, x_all, enc, impls, rows_used) -> dict:
+    """B1-fwd against its plain version on the first rows of ``x_all``
+    (rows x D) for each of ``impls`` and ``rows_used``, launched twice for
+    bit-identity (the groups' partial sums are added in a fixed order);
+    ``enc`` from ``encoder_params``. Fails on any case; returns {(impl,
+    rows): max abs err}."""
+    w, bias, freqs, wi = enc
+    out = {}
+    with torch.no_grad():
+        for impl in impls:
+            for rows in rows_used:
+                case = f"B1 {impl} D={x_all.shape[1]} R={rows}"
+                x2d = x_all[:rows].contiguous()
+                got = harmonic.harmonic_dense_fwd(x2d, w, bias, freqs, impl, wi)
+                again = harmonic.harmonic_dense_fwd(x2d, w, bias, freqs, impl,
+                                                    wi)
+                want = harmonic.harmonic_dense_plain(x2d, w, bias, freqs, impl)
+                torch.cuda.synchronize()
+                if not torch.isfinite(got).all() or not torch.equal(got, again):
+                    fail(f"{case}: non-finite output, or two launches differ")
+                err = float((got - want).abs().max())
+                if not err <= TOL_B1:
+                    fail(f"{case}: {err:.3e} from its plain version (tol "
+                         f"{TOL_B1:g})")
+                out[(impl, rows)] = err
+    return out
+
+
+def check_b1_bwd(torch, harmonic, x_all, g_all, enc, impls, rows_used,
+                 dx_cases) -> dict:
+    """B1-bwd against its plain version on the first rows of ``x_all`` and
+    ``g_all`` for each of ``impls``, ``rows_used`` and ``dx_cases`` (dx
+    asked for or not), launched twice for bit-identity; dx, dW and db each
+    within TOL_B1_BWD of max|ref|. Fails on any case; returns {(impl,
+    rows, need_dx): {name: (max abs err, err / max|ref|)}}."""
+    w, _, freqs, wi = enc
+    out = {}
+    with torch.no_grad():
+        for impl in impls:
+            for rows in rows_used:
+                x2d, gr = x_all[:rows].contiguous(), g_all[:rows].contiguous()
+                for dx_on in dx_cases:
+                    case = (f"B1-bwd {impl} D={x2d.shape[1]} R={rows} need_dx="
+                            f"{dx_on}")
+                    got = harmonic.harmonic_dense_bwd(x2d, gr, w, freqs, impl,
+                                                      wi, need_dx=dx_on)
+                    again = harmonic.harmonic_dense_bwd(x2d, gr, w, freqs, impl,
+                                                        wi, need_dx=dx_on)
+                    want = harmonic.harmonic_dense_bwd_plain(
+                        x2d, gr, w, freqs, impl, need_dx=dx_on)
+                    torch.cuda.synchronize()
+                    errs = {}
+                    for name, a, a2, ref in zip(("dx", "dW", "db"), got, again,
+                                                want):
+                        if (a is None) != (name == "dx" and not dx_on):
+                            fail(f"{case}: {name} is {a}")
+                        if a is None:
+                            continue
+                        if not torch.isfinite(a).all() or not torch.equal(a, a2):
+                            fail(f"{case} {name}: non-finite, or two launches "
+                                 "differ")
+                        err = float((a - ref).abs().max())
+                        scale = float(ref.abs().max())
+                        if not err <= TOL_B1_BWD * scale:
+                            fail(f"{case} {name}: {err:.3e} > {TOL_B1_BWD:g} x "
+                                 f"max|ref| {scale:.3e}")
+                        errs[name] = (err, err / scale)
+                    out[(impl, rows, dx_on)] = errs
+    return out
+
+
+def b1_times(torch, harmonic, x_all, g_all, enc, rows_used) -> dict:
+    """B1's times at each of ``rows_used``, per call from Python by CUDA
+    events: the forward (direct and doubling) and dW+db without and with dx
+    (direct; dW+db also doubling), the plain versions, the bounds, and
+    cuBLAS's f32 products alone on a precomputed embedding (no trig: the
+    forward's F.linear and dW's g.t() @ embed); each kernel's profiler
+    device us/launch."""
+    from motionmixerconv_tpu_torch.models.encoding import harmonic_features
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("TF32 is on: the cuBLAS yardsticks would not be float32")
+    w, bias, freqs, wi = enc
+    d, n, e = x_all.shape[1], freqs.numel(), w.shape[0]
+    fwd, bwd, dev = {}, {}, {}
+    with torch.no_grad():
+        for rows in rows_used:
+            x2d, gr = x_all[:rows].contiguous(), g_all[:rows].contiguous()
+            feats = harmonic_features(x2d, n, float(freqs[0]), "direct", freqs)
+            for dx_on in (False, True):
+                bwd[(rows, dx_on)] = {
+                    "ms": cuda_ms(torch, lambda: harmonic.harmonic_dense_bwd(
+                        x2d, gr, w, freqs, "direct", wi, need_dx=dx_on),
+                        reps=10),
+                    "plain_ms": cuda_ms(
+                        torch, lambda: harmonic.harmonic_dense_bwd_plain(
+                            x2d, gr, w, freqs, "direct", need_dx=dx_on),
+                        reps=10),
+                    "bound": bound(*b1_bwd_work(rows, d, n, e, "direct",
+                                                dx_on))}
+            bwd[(rows, False)]["doubling_ms"] = cuda_ms(
+                torch, lambda: harmonic.harmonic_dense_bwd(
+                    x2d, gr, w, freqs, "doubling", wi, need_dx=False), reps=10)
+            bwd[(rows, False)]["library_ms"] = cuda_ms(
+                torch, lambda: gr.t() @ feats, reps=10)
+            fwd[rows] = {
+                "ms": cuda_ms(torch, lambda: harmonic.harmonic_dense_fwd(
+                    x2d, w, bias, freqs, "direct", wi), reps=10),
+                "doubling_ms": cuda_ms(torch, lambda: harmonic.harmonic_dense_fwd(
+                    x2d, w, bias, freqs, "doubling", wi), reps=10),
+                "plain_ms": cuda_ms(torch, lambda: harmonic.harmonic_dense_plain(
+                    x2d, w, bias, freqs, "direct"), reps=10),
+                "bound": bound(*b1_work(rows, d, n, e, "direct")),
+                "library_ms": cuda_ms(
+                    torch, lambda: torch.nn.functional.linear(feats, w, bias),
+                    reps=10)}
+            for k in B1_FWD_KERNELS:
+                dev[f"fwd R={rows} {k}"] = device_us(
+                    torch, lambda: harmonic.harmonic_dense_fwd(
+                        x2d, w, bias, freqs, "direct", wi), k, reps=5)
+            for k in B1_BWD_KERNELS:
+                dev[f"bwd+dx R={rows} {k}"] = device_us(
+                    torch, lambda: harmonic.harmonic_dense_bwd(
+                        x2d, gr, w, freqs, "direct", wi, need_dx=True), k,
+                    reps=5)
+    return {"fwd": fwd, "bwd": bwd, "device_us": dev}
+
+
+def fmt_b1_times(t: dict) -> str:
+    return (
+        "B1-fwd kernel (doubling) / plain / cuBLAS F.linear(embed, W, b) ms "
+        "(bound ms, by): " + " ; ".join(
+            f"R={r} {v['ms']:.4f} ({v['doubling_ms']:.4f}) / "
+            f"{v['plain_ms']:.4f} / {v['library_ms']:.4f} ({v['bound'][0]:.5f}"
+            f", {v['bound'][1]})" for r, v in t["fwd"].items())
+        + " | B1-bwd direct kernel / plain ms (bound ms, by): " + " ; ".join(
+            f"R={r} {'dW+db+dx' if dx else 'dW+db'} {v['ms']:.4f} / "
+            f"{v['plain_ms']:.4f} ({v['bound'][0]:.5f}, {v['bound'][1]})"
+            for (r, dx), v in t["bwd"].items())
+        + " | dW+db doubling ms, cuBLAS g.t() @ embed ms: " + " ; ".join(
+            f"R={r} {v['doubling_ms']:.4f}, {v['library_ms']:.4f}"
+            for (r, dx), v in t["bwd"].items() if not dx)
+        + " | profiler device us/launch: " + " ; ".join(
+            f"{k} {'not measured' if v is None else f'{v:.2f}'}"
+            for k, v in t["device_us"].items()))
+
+
+def check_b2(torch, lib, tag, fused, y_all, batches) -> dict:
+    """B2 against its plain version for ``fused`` (a ``FusedConvMixer``) on
+    the first B rows of ``y_all`` (its encoder's output) at each B of
+    ``batches``, B2_REPEATS launches of each case bit-identical; the
+    kernel's weight layout and each launch plan against the library and
+    the card's shared memory. Fails on any case; returns {B: {"err",
+    "plan", "fit"}}."""
+    from motionmixerconv_tpu_torch.ops import conv_mixer
+
+    spec, wts = fused.spec, fused.weights
+    dims = (spec.T, spec.E, spec.P, spec.D, spec.H, spec.num_blocks,
+            *spec.k1, *spec.k2)
+    if lib.mmc_conv_mixer_weights_numel(*dims) != spec.numel():
+        fail(f"B2 {tag}: the kernel's weight layout disagrees with "
+             "ops/conv_mixer.py")
+    card_smem = lib.mmc_conv_mixer_card_smem()
+    out = {}
+    with torch.no_grad():
+        for b in batches:
+            plan = conv_mixer.b2_plan(spec, b)
+            fit = lib.mmc_conv_mixer_resident_blocks(plan.threads, plan.smem)
+            lib_smem = lib.mmc_conv_mixer_smem_bytes(*dims)
+            if lib_smem != plan.smem or not plan.smem <= card_smem or fit < 1:
+                fail(f"B2 {tag} B={b}: {plan} against the library's "
+                     f"{lib_smem} B, the card's {card_smem} B, {fit} resident")
+            y = y_all[:b].contiguous()
+            got = conv_mixer.conv_mixer_fused(y, wts, spec)
+            differ = sum(not torch.equal(
+                got, conv_mixer.conv_mixer_fused(y, wts, spec))
+                for _ in range(B2_REPEATS - 1))
+            want = conv_mixer.conv_mixer_plain(y, wts, spec)
+            torch.cuda.synchronize()
+            if not torch.isfinite(got).all() or differ:
+                fail(f"B2 {tag} B={b} {plan}: non-finite output, or {differ} "
+                     f"of {B2_REPEATS - 1} launches differ from the first")
+            err = float((got - want).abs().max())
+            if not err <= TOL_B2:
+                fail(f"B2 {tag} B={b}: {err:.3e} from its plain version (tol "
+                     f"{TOL_B2:g})")
+            out[b] = {"err": err, "plan": plan, "fit": fit}
+    return out
+
+
+def fmt_b2_plans(tag, checks: dict) -> str:
+    return " ; ".join(f"{tag} B={b} {v['plan'].blocks} blocks x "
+                      f"{v['plan'].warps} warps, {v['plan'].smem} B smem, "
+                      f"{v['fit']} resident, err {v['err']:.3e}"
+                      for b, v in checks.items())
+
+
+def b2_times(torch, fused, y_all, batches) -> dict:
+    """B2's times for ``fused`` at each B of ``batches``: the device's
+    (calls queued behind a spin kernel), per call from Python and the
+    plain version's by CUDA events, the host's enqueue, the bound and the
+    profiler's device us/launch."""
+    from motionmixerconv_tpu_torch.ops import conv_mixer
+
+    spec, wts = fused.spec, fused.weights
+    out = {}
+    with torch.no_grad():
+        for b in batches:
+            y = y_all[:b].contiguous()
+
+            def call():
+                return conv_mixer.conv_mixer_fused(y, wts, spec)
+
+            out[b] = {"device_ms": queued_ms(torch, call),
+                      "ms": cuda_ms(torch, call),
+                      "plain_ms": cuda_ms(torch, lambda: conv_mixer.conv_mixer_plain(
+                          y, wts, spec), reps=10),
+                      "host_ms": host_ms(torch, call),
+                      "bound": bound(*b2_work(spec, b, wts.numel())),
+                      "device_us": device_us(torch, call,
+                                             "conv_mixer_fused_kernel")}
+    return out
+
+
+def fmt_b2_times(tag, times: dict) -> str:
+    return " ; ".join(
+        f"{tag} B={b} {v['ms']:.4f}/{v['device_ms']:.4f}/{v['plain_ms']:.4f}/"
+        f"{v['host_ms']:.4f} ({v['bound'][0]:.6f}, {v['bound'][1]}; "
+        + ("not measured" if v["device_us"] is None else
+           f"{v['device_us']:.2f}") + ")" for b, v in times.items())
+
+
+def check_b4(torch, tag, fused, model, x, batches) -> dict:
+    """B4 against its plain version for ``fused`` (a ``FusedMlpMixer`` of
+    ``model``) on the first B rows of ``x`` at each B of ``batches``,
+    B4_REPEATS launches of each case bit-identical. Fails on any case;
+    returns {B: {"err", "module_err"}} (the latter against the module's
+    own forward)."""
+    from motionmixerconv_tpu_torch.ops import mlp_mixer
+
+    spec, wts = fused.spec, fused.weights
+    out = {}
+    with torch.no_grad():
+        for b in batches:
+            xb = x[:b].contiguous()
+            got = mlp_mixer.mlp_mixer_fused(xb, wts, spec)
+            differ = sum(not torch.equal(got, mlp_mixer.mlp_mixer_fused(
+                xb, wts, spec)) for _ in range(B4_REPEATS - 1))
+            want = mlp_mixer.mlp_mixer_plain(xb, wts, spec)
+            module = model(xb)
+            torch.cuda.synchronize()
+            if not torch.isfinite(got).all() or differ:
+                fail(f"B4 {tag} B={b}: non-finite output, or {differ} of "
+                     f"{B4_REPEATS - 1} launches differ from the first")
+            err = float((got - want).abs().max())
+            if not err <= TOL_B4:
+                fail(f"B4 {tag} B={b}: {err:.3e} from its plain version (tol "
+                     f"{TOL_B4:g})")
+            out[b] = {"err": err,
+                      "module_err": float((got - module).abs().max())}
+    return out
+
+
+def b4_times(torch, fused, x, n_model, batches) -> dict:
+    """B4's times for ``fused`` at each B of ``batches``: per call from
+    Python and the plain version's by CUDA events, the device's (calls
+    queued), the bound (``n_model`` the model's own floats) and the
+    profiler's device us/launch, which must show."""
+    from motionmixerconv_tpu_torch.ops import mlp_mixer
+
+    spec, wts = fused.spec, fused.weights
+    out = {}
+    with torch.no_grad():
+        for b in batches:
+            xb = x[:b].contiguous()
+
+            def call():
+                return mlp_mixer.mlp_mixer_fused(xb, wts, spec)
+
+            out[b] = {"ms": cuda_ms(torch, call),
+                      "plain_ms": cuda_ms(torch, lambda: mlp_mixer.mlp_mixer_plain(
+                          xb, wts, spec), reps=10),
+                      "bound": bound(*b4_work(spec, b, n_model)),
+                      "device_ms": queued_ms(torch, call),
+                      "device_us": device_us(torch, call, "mlp_mixer_kernel"),
+                      "launch": b4_launch(spec, b)}
+            if out[b]["device_us"] is None:
+                fail(f"B4 B={b}: the profiler shows no device time for "
+                     "mlp_mixer_kernel")
+    return out
+
+
+def fmt_b4_times(tag, times: dict) -> str:
+    return " ; ".join(
+        f"{tag} B={b} {v['ms']:.4f}/{v['device_ms']:.4f}/{v['plain_ms']:.4f} "
+        f"({v['bound'][0]:.5f}, {v['bound'][1]}; {v['device_us']:.2f}); "
+        f"{v['launch']}" for b, v in times.items())
+
+
 def bound(nbytes: int, ops: int):
     t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -828,6 +1156,418 @@ def post(base: str, path: str, payload: dict) -> dict:
         headers={"Content-Type": "application/json"})
     with urllib.request.urlopen(req, timeout=120) as r:
         return json.loads(r.read())
+
+
+def cli_args(cli, argv):
+    """A training CLI's parsed flags, with the kernel shape its ``main``
+    adds before training."""
+    args = cli.parse_args(argv)
+    if hasattr(args, "kernel1_x"):
+        args.conv1_kernel_shape = (args.kernel1_x, args.kernel1_y)
+    return args
+
+
+def cli_models(torch):
+    """The models of phases 17-20 at their CLIs' defaults, built from the
+    flags as a checkpoint's meta rebuilds them (seeded, CPU): the angle
+    ConvMixer and MlpMixer of ``train_mixer_h36m``, the direct and
+    autoregressive AIS ConvMixers."""
+    from motionmixerconv_tpu_torch.cli import (train_autoreg_mixer_ais,
+                                               train_mixer_ais,
+                                               train_mixer_h36m)
+    from motionmixerconv_tpu_torch.cli._runner import model_from_checkpoint_meta
+
+    torch.manual_seed(SEED + 11)
+    return {tag: model_from_checkpoint_meta(vars(cli_args(cli, argv))).eval()
+            for tag, cli, argv in (
+                ("angle", train_mixer_h36m, []),
+                ("ais", train_mixer_ais, []),
+                ("ais_ar", train_autoreg_mixer_ais, []),
+                ("angle_mlp", train_mixer_h36m, ["--model_type", "mlp"]))}
+
+
+def new_shape_kernels(torch, dev, lib, card, models) -> dict:
+    """Phase 17: B1-fwd, B1-bwd, B2 and B4 at the shapes the angle and AIS
+    paths give them, through the checks and timers of phases 3-4, 6-7, 10,
+    14 and 16; each plan against the library and the card. Returns the
+    numbers the kernels line takes."""
+    from motionmixerconv_tpu_torch.ops import conv_mixer, harmonic, mlp_mixer
+
+    b1_plans = check_b1_plans(lib, harmonic, torch, B1_ANGLE_SHAPE,
+                              B1_ANGLE_ROWS)
+    d, n, e = B1_ANGLE_SHAPE
+    enc = encoder_params(models["angle"].to(dev).encoder)
+    if tuple(enc[0].shape) != (e, 2 * n * d):
+        fail(f"B1 angle: encoder weight {tuple(enc[0].shape)}, not the shape "
+             f"{B1_ANGLE_SHAPE}")
+    gen = torch.Generator().manual_seed(SEED + 13)
+    x_all = (torch.randn(max(B1_ANGLE_ROWS), d, generator=gen) * 0.5).to(dev)
+    g_all = torch.randn(max(B1_ANGLE_ROWS), e, generator=gen).to(dev)
+    out = {"b1_fwd": check_b1_fwd(torch, harmonic, x_all, enc, ("direct",),
+                                  B1_ANGLE_ROWS),
+           "b1_bwd": check_b1_bwd(torch, harmonic, x_all, g_all, enc,
+                                  ("direct",), B1_ANGLE_ROWS, (False, True)),
+           "b1_times": b1_times(torch, harmonic, x_all, g_all, enc,
+                                B1_ANGLE_ROWS),
+           "b2": {}, "b2_times": {}}
+    for tag in ("angle", "ais", "ais_ar"):
+        model = models[tag].to(dev)
+        fused = conv_mixer.make_fused_conv_mixer(model)
+        x = (torch.randn(max(B2_BATCHES), fused.spec.T, model.dimPosIn,
+                         generator=gen) * 0.5).to(dev)
+        with torch.no_grad():
+            y_all = fused.encoder(x)[..., 0].contiguous()
+        out["b2"][tag] = check_b2(torch, lib, tag, fused, y_all, B2_BATCHES)
+        out["b2_times"][tag] = b2_times(torch, fused, y_all, B2_NEW_TIMED)
+    model = models["angle_mlp"].to(dev)
+    fused = mlp_mixer.make_fused_mlp_mixer(model)
+    x = (torch.randn(max(B4_ANGLE_BATCHES), fused.spec.T, fused.spec.D,
+                     generator=gen) * 0.5).to(dev)
+    out["b4"] = check_b4(torch, "angle", fused, model, x, B4_ANGLE_BATCHES)
+    out["b4_times"] = b4_times(torch, fused, x, model_floats(model),
+                               B4_ANGLE_BATCHES)
+    say(f"[17 kernels at the angle and AIS shapes] {card} | B1 (D, n, E) = "
+        f"{B1_ANGLE_SHAPE}, direct: fwd err " + " ; ".join(
+            f"R={r} {v:.3e}" for (_, r), v in out["b1_fwd"].items())
+        + f" (tol {TOL_B1:g}) | bwd err/max|ref| " + " ; ".join(
+            f"R={r} {'dW+db+dx' if dx else 'dW+db'} " + ", ".join(
+                f"{k} {x[1]:.3e}" for k, x in v.items())
+            for (_, r, dx), v in out["b1_bwd"].items())
+        + f" (tol {TOL_B1_BWD:g}); second launches bit-identical; launch "
+        f"plans (library agrees): {b1_plans} | {fmt_b1_times(out['b1_times'])}"
+        f" | B2 (tol {TOL_B2:g}; {B2_REPEATS} launches of each case "
+        "bit-identical; plans, library and card agree): " + " ; ".join(
+            fmt_b2_plans(t, v) for t, v in out["b2"].items())
+        + " | B2 ms per call/device/plain/host enqueue (bound ms, by; "
+        "profiler device us/launch): " + " ; ".join(
+            fmt_b2_times(t, v) for t, v in out["b2_times"].items())
+        + f" | B4 angle MlpMixer (tol {TOL_B4:g}; {B4_REPEATS} launches "
+        "bit-identical) err " + " ; ".join(
+            f"B={b} {v['err']:.3e}" for b, v in out["b4"].items())
+        + " | B4 ms per call/device/plain (bound ms, by; profiler device "
+        f"us/launch): {fmt_b4_times('angle', out['b4_times'])}")
+    for m in models.values():
+        m.cpu()
+    return out
+
+
+def served_err(torch, got, want) -> float:
+    """Max abs error of a served answer, relative to max(1, max|want|)."""
+    want = want.to(got.device)
+    return float((got - want).abs().max()) / max(1.0, float(want.abs().max()))
+
+
+def serve_checks(torch, dev, state, x, http: bool):
+    """``state`` (a train_state.pt) rebuilt and served in process (and over
+    HTTP with ``serving_server --arch auto`` when ``http``) on ``x``; the
+    answers against the checkpoint's plain forward (its model with the
+    plain encoder). Returns (Predictor, in-process answer, its error, the
+    HTTP answer's error or None)."""
+    from motionmixerconv_tpu_torch import serving_server
+    from motionmixerconv_tpu_torch.cli._runner import model_from_checkpoint_meta
+    from motionmixerconv_tpu_torch.models.torch_io import read_weights
+    from motionmixerconv_tpu_torch.serving import Predictor
+    from motionmixerconv_tpu_torch.serving_server import PredictionServer
+
+    served = Predictor.from_checkpoint(None, str(state), device=dev)
+    got = served.predict(x)
+    http_err = None
+    if http:
+        pred = serving_server.load_predictor(
+            serving_server.build_parser().parse_args(
+                ["--model_path", str(state), "--arch", "auto"]), dev)
+        server = PredictionServer(pred, port=0, warmup=True)
+        server.start_background()
+        try:
+            answer = post(f"http://127.0.0.1:{server.port}", "/predict",
+                          {"inputs": x[:5].tolist()})["outputs"]
+        finally:
+            server.close()
+    sd, meta = read_weights(str(state))
+    plain = model_from_checkpoint_meta({**meta, "fused_encoder": False})
+    plain.load_state_dict(sd, strict=True)
+    with torch.no_grad():
+        want = plain.to(dev).eval()(x.to(dev))
+    torch.cuda.synchronize()
+    if http:
+        http_err = served_err(torch, torch.tensor(answer), want[:5].cpu())
+    return served, got, served_err(torch, got, want), http_err
+
+
+def non_finite(np, hist, names) -> list:
+    """The per-epoch losses and test metrics of a CLI history that are not
+    finite."""
+    values = [*hist["train"], *hist["val"], *hist["test"]]
+    for k in names:
+        values += list(hist["metrics"][k])
+    return [float(v) for v in values if not np.isfinite(float(v))]
+
+
+def angle_and_ais_paths(torch, np, dev, card, work, data_dir,
+                        counters) -> dict:
+    """Phases 18-20: the main CLI at its true defaults (the angle loss) with
+    ``--fused_encoder``, the angle autoregressive CLI, and both AIS CLIs,
+    each driven with the launch ``counters`` set to 0 just before and read
+    just after its checkpoint is served; then their times. Returns the
+    numbers the kernels line takes."""
+    from motionmixerconv_tpu_torch.cli import (_runner, train_autoreg_mixer_ais,
+                                               train_autoreg_mixer_h36m,
+                                               train_mixer_ais, train_mixer_h36m)
+    from motionmixerconv_tpu_torch.data import AISDataset, H36MDataset, fixtures
+    from motionmixerconv_tpu_torch.data.constants import (
+        AIS_ALL_ACTIONS, AIS_DIM_USED, AIS_TEST_ACTIONS, AIS_TRAIN_ACTIONS,
+        H36M_DIM_USED_ANGLE)
+    from motionmixerconv_tpu_torch.ops import harmonic
+    from motionmixerconv_tpu_torch.train import Trainer, make_optimizer
+
+    def reset():
+        for c in counters.values():
+            c.reset()
+
+    def read():
+        torch.cuda.synchronize()
+        return {k: c.value for k, c in counters.items()}
+
+    out = {}
+    # [18] the main CLI at its defaults: --loss_type angle (48 dims, hidden
+    # 60, 3 blocks, lr 1e-2), with the fused encoder, 2 epochs as one chunk
+    save = work / "runs_angle"
+    shutil.rmtree(save, ignore_errors=True)
+    argv = [*ANGLE_ARGV, *EPD2, "--data_dir", str(data_dir), "--save_path",
+            str(save)]
+    args = train_mixer_h36m.parse_args(argv)
+    n_train = len(H36MDataset(str(data_dir), args.input_n, args.output_n,
+                              args.skip_rate, split=0, mode="angle"))
+    steps = args.n_epochs * -(-n_train // args.batch_size)
+    test_ds = H36MDataset(str(data_dir), 10, 25, 1, split=2, mode="angle")
+    x_angle = torch.as_tensor(np.stack(
+        [test_ds[i] for i in range(32)]))[:, :10, H36M_DIM_USED_ANGLE]
+    x_angle = x_angle.contiguous()
+    reset()
+    t0 = time.perf_counter()
+    with counted_launches(harmonic, Trainer, COUNTED_METHODS) as in_run:
+        hist = train_mixer_h36m.main(argv)
+    run_s = time.perf_counter() - t0
+    state = save / "h36_3d_25frames_ckpt" / _runner.STATE_FILE
+    served, got, err, http_err = serve_checks(torch, dev, state, x_angle, True)
+    launches = read()
+    b1_train = {k: in_run["_train_sums"][k] for k in B1_IN_RUN}
+    for p in work.glob("epd_angle*"):
+        shutil.rmtree(p, ignore_errors=True)
+    epd_err, epd2, epd1 = epd_check(
+        torch, train_mixer_h36m.main,
+        [*ANGLE_ARGV, "--data_dir", str(data_dir)], work / "epd_angle")
+    names = ("euler_angle", "joint_angle")
+    say(f"[18 main CLI at its defaults {' '.join(ANGLE_ARGV + EPD2)}] "
+        f"loss_type {args.loss_type}, model {type(served.model).__name__} "
+        f"{served.model.dimPosIn} dims, dimPosEmb {served.model.dimPosEmb}, "
+        f"{served.model.num_blocks} blocks, lr {args.lr}, served through "
+        f"{type(served._fused).__name__} | {n_train} train windows, batch "
+        f"{args.batch_size} | train loss {hist['train']} | val (euler) "
+        f"{hist['val']} | euler_angle "
+        f"{[float(v) for v in hist['metrics']['euler_angle']]} | joint_angle "
+        f"{[float(v) for v in hist['metrics']['joint_angle']]} | Python "
+        f"launch counts on the path {launches} | device launches in the "
+        f"CLI's run (the kernels' device counters, read around each training"
+        f" and evaluation call): "
+        f"training {b1_train} for {steps} train steps, evaluation "
+        f"{in_run['_eval_sums']} | deterministic cuDNN, --epochs_per_dispatch"
+        f" 2 against 1: per-epoch history max rel {epd_err:.3e} (tol "
+        f"{TOL_EPD:g}; train loss {epd2['train']} against {epd1['train']}) | "
+        f"train_state.pt served through B2 (b=32 test windows) vs the plain "
+        f"forward: max abs err / max(1, max|out|) {err:.3e}; /predict --arch "
+        f"auto b=5 {http_err:.3e} (tol {TOL_E2E:g}) | whole CLI run s "
+        f"{run_s:.2f}")
+    bad = non_finite(np, hist, names)
+    if bad or set(hist["metrics"]) != set(names):
+        fail(f"angle run: metrics {list(hist['metrics'])}, non-finite {bad}")
+    for k in B1_IN_RUN:
+        if b1_train[k] < steps:
+            fail(f"{k}: {b1_train[k]} device launches in the angle CLI's "
+                 f"{steps} train steps")
+    if not epd_err <= TOL_EPD:
+        fail(f"angle --epochs_per_dispatch 2 and 1 disagree: {epd_err:.3e}")
+    if launches["conv_mixer_fused"] < 1 or type(served._fused).__name__ != \
+            "FusedConvMixer":
+        fail("the angle checkpoint was not served through B2")
+    if got.shape != (32, 25, 48) or not err <= TOL_E2E \
+            or not http_err <= TOL_E2E:
+        fail(f"served angle checkpoint: shape {tuple(got.shape)}, err "
+             f"{err:.3e}, /predict err {http_err:.3e}")
+    out["angle"] = {"launches": launches, "b1_train": b1_train,
+                    "steps": steps, "hist": hist, "n_train": n_train}
+
+    # [19] the angle autoregressive CLI at its defaults (conv_nChan 60,
+    # hidden 60, (5,5), 48 dims): outside B3's domain, served by the plain
+    # forward with the domain named
+    save = work / "runs_ar_angle"
+    shutil.rmtree(save, ignore_errors=True)
+    argv = [*AR_ANGLE_ARGV, *EPD2, "--data_dir", str(data_dir),
+            "--save_path", str(save)]
+    ar_args = train_autoreg_mixer_h36m.parse_args(argv)
+    reset()
+    t0 = time.perf_counter()
+    ar_hist = train_autoreg_mixer_h36m.main(argv)
+    ar_run_s = time.perf_counter() - t0
+    state = save / "h36_ar_25frames_ckpt" / _runner.STATE_FILE
+    served, got, err, _ = serve_checks(torch, dev, state, x_angle, False)
+    ar_launches = read()
+    reason = served.fused_fallback_reason or ""
+    say(f"[19 angle autoregressive CLI {' '.join(AR_ANGLE_ARGV + EPD2)}] "
+        f"model conv_nChan {served.model.conv_nChan} dimPosEmb "
+        f"{served.model.dimPosEmb} kernel {served.model.conv1_kernel_shape} "
+        f"{served.model.dimPosIn} dims, lr {ar_args.lr} | train loss "
+        f"{ar_hist['train']} (teacher forcing, closed loop) | val "
+        f"{ar_hist['val']} | euler_angle "
+        f"{[float(v) for v in ar_hist['metrics']['euler_angle']]} | "
+        f"joint_angle {[float(v) for v in ar_hist['metrics']['joint_angle']]}"
+        f" | launches on the path {ar_launches} | served: fused kernel "
+        f"{type(served._fused).__name__}, fused_fallback_reason {reason!r}; "
+        f"b=32 vs the plain forward {err:.3e} | whole CLI run s "
+        f"{ar_run_s:.2f}")
+    bad = non_finite(np, ar_hist, names)
+    if bad:
+        fail(f"angle autoregressive run: non-finite {bad}")
+    if served._fused is not None or "conv_nChan*in_nTP <= 128" not in reason:
+        fail(f"angle autoregressive model: fused {served._fused}, reason "
+             f"{reason!r}; expected B3's domain refusal")
+    if got.shape != (32, 5, 48) or not err <= TOL_E2E:
+        fail(f"served angle autoregressive checkpoint: shape "
+             f"{tuple(got.shape)}, err {err:.3e}")
+    out["angle_autoregressive"] = {"launches": ar_launches}
+
+    # [20] AIS: the synthetic keypoint corpus, both CLIs at their default
+    # widths, their checkpoints served through B2
+    ais_dir = work / "ais"
+    shutil.rmtree(ais_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    fixtures.make_ais_corpus(str(ais_dir), actions=AIS_ALL_ACTIONS,
+                             n_frames=AIS_FRAMES,
+                             fail_frames=frozenset(AIS_FAIL_FRAMES), seed=SEED)
+    ais_corpus_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    test_ais = AISDataset(str(ais_dir), 10, 10, 2, AIS_TEST_ACTIONS, 0.15)
+    ais_parse_s = time.perf_counter() - t0
+    x_ais = torch.as_tensor(np.stack(
+        [test_ais[int(i)] for i in np.linspace(0, len(test_ais) - 1, 32)]
+    ))[:, :10, AIS_DIM_USED]
+    x_ais = x_ais.contiguous()
+    ais = {}
+    for tag, cli, extra, http in (
+            ("ais", train_mixer_ais, AIS_ARGV, True),
+            ("ais_autoregressive", train_autoreg_mixer_ais, AIS_AR_ARGV,
+             False)):
+        save = work / f"runs_{tag}"
+        shutil.rmtree(save, ignore_errors=True)
+        argv = [*extra, *EPD2, "--data_dir", str(ais_dir), "--save_path",
+                str(save)]
+        a = cli_args(cli, argv)
+        window = ((a.input_n, a.output_n) if hasattr(a, "input_n")
+                  else (a.input_n_dataset, a.output_n_dataset))
+        n_tr = len(AISDataset(str(ais_dir), *window, a.skip_rate,
+                              AIS_TRAIN_ACTIONS, a.smoothing_alpha))
+        reset()
+        t0 = time.perf_counter()
+        h = cli.main(argv)
+        run_s = time.perf_counter() - t0
+        state = next(save.glob(f"*/{_runner.STATE_FILE}"))
+        served, got, err, http_err = serve_checks(torch, dev, state, x_ais,
+                                                  http)
+        ais[tag] = {"hist": h, "launches": read(), "err": err,
+                    "http_err": http_err, "run_s": run_s, "n_train": n_tr,
+                    "steps": -(-n_tr // a.batch_size),
+                    "shape": tuple(got.shape), "served": served}
+    d, ar = ais["ais"], ais["ais_autoregressive"]
+    say(f"[20 AIS CLIs {' '.join(AIS_ARGV + EPD2)}; "
+        f"{' '.join(AIS_AR_ARGV + EPD2)}] corpus: {len(AIS_ALL_ACTIONS)} "
+        f"actions x {AIS_FRAMES} frames, {len(AIS_FAIL_FRAMES)} failed "
+        f"detections each, written in {ais_corpus_s:.1f} s (test split "
+        f"parsed in {ais_parse_s:.2f} s) | " + " | ".join(
+            f"{tag}: {v['n_train']} train windows, model "
+            f"{v['served'].model.dimPosIn} dims, dimPosEmb "
+            f"{v['served'].model.dimPosEmb}, kernel "
+            f"{v['served'].model.conv1_kernel_shape}, harmonics "
+            f"{v['served'].model.encoder_n_harmonic_functions}, served "
+            f"through {type(v['served']._fused).__name__}; train loss "
+            f"{v['hist']['train']}, val {v['hist']['val']}, test mpjpe mm "
+            f"{[float(x) for x in v['hist']['metrics']['mpjpe']]}, auc_pck "
+            f"{[float(x) for x in v['hist']['metrics']['auc_pck']]}; "
+            f"launches on the path {v['launches']}; served b=32 vs the plain "
+            f"forward {v['err']:.3e}"
+            + ("" if v["http_err"] is None else
+               f", /predict --arch auto b=5 {v['http_err']:.3e}")
+            + f" (tol {TOL_E2E:g}); whole CLI run s {v['run_s']:.2f}"
+            for tag, v in ais.items()))
+    for tag, v in ais.items():
+        bad = non_finite(np, v["hist"], ("mpjpe", "auc_pck"))
+        if bad:
+            fail(f"{tag} run: non-finite {bad}")
+        if v["launches"]["conv_mixer_fused"] < 1:
+            fail(f"the {tag} checkpoint was not served through B2")
+        if not v["err"] <= TOL_E2E or not (v["http_err"] is None
+                                           or v["http_err"] <= TOL_E2E):
+            fail(f"served {tag} checkpoint: err {v['err']:.3e}, /predict "
+                 f"{v['http_err']}")
+    if not d["hist"]["train"][1] < d["hist"]["train"][0]:
+        fail(f"AIS run: the train loss did not fall: {d['hist']['train']}")
+    if d["shape"] != (32, 10, 33) or ar["shape"] != (32, 5, 33):
+        fail(f"served AIS shapes {d['shape']}, {ar['shape']}")
+    out.update({tag: {"launches": v["launches"]} for tag, v in ais.items()})
+
+    # times of [18] and [20]: train steps on random windows, the graph path
+    # against scan=False; the angle graph held to its eager steps (the
+    # L1 loss, the euler validation and the h36m_angle test under capture)
+    def trainer_for(cli, argv, **kw):
+        def make(**opt):
+            a = cli_args(cli, argv)
+            torch.manual_seed(SEED + 14)
+            model = _runner.model_from_checkpoint_meta(vars(a)).to(dev)
+            return Trainer(model, make_optimizer(model.parameters(), lr=a.lr,
+                                                 **opt),
+                           loss_type=a.loss_type, **kw)
+        return make
+
+    make_angle = trainer_for(train_mixer_h36m, ANGLE_ARGV,
+                             dim_used=H36M_DIM_USED_ANGLE, input_n=10,
+                             output_n=25, input_scale=1.0)
+    frames, starts, w = random_batches(torch, dev, SEED + 14, 5000, 99, 1.0,
+                                       35, 3 * GRAPH_STEPS, TRAIN_BATCH)
+    ev_starts = np.random.default_rng(SEED + 14).integers(0, 5000 - 35, 900)
+    angle_graph = graph_vs_eager(
+        torch, lambda: make_angle(**GRAPH_SCHEDULE), frames, starts, w,
+        [None],
+        [("val", 1, frames, ev_starts, np.zeros(900, np.int64), TRAIN_BATCH),
+         ("h36m_angle", 3, frames, ev_starts, np.arange(900) % 3, 128)])
+    check_graph("angle", angle_graph)
+    angle_times = train_times(torch, make_angle(), frames, starts, w, None)
+    make_ais = trainer_for(train_mixer_ais, [],
+                           dim_used=AIS_DIM_USED, input_n=10, output_n=10)
+    frames, starts, w = random_batches(torch, dev, SEED + 15, 5000, 57, 0.3,
+                                       20, 3 * GRAPH_STEPS, TRAIN_BATCH)
+    ais_times = train_times(torch, make_ais(), frames, starts, w, None)
+    a_hist = out["angle"]["hist"]
+    steps_a = out["angle"]["steps"] // 2
+    say(f"[18/20 times] {card} | angle CLI epochs 0, 1 as one chunk (each "
+        f"the chunk's / 2, validation and test included; phase 18's run, "
+        f"the device counters read around each call, and the epd check's "
+        f"run under deterministic cuDNN): train s "
+        f"{a_hist['train_s'][0]:.3f}, {epd2['train_s'][0]:.3f} | train "
+        f"samples/s {n_train / a_hist['train_s'][0]:.1f}, "
+        f"{n_train / epd2['train_s'][0]:.1f} | step ms "
+        f"{a_hist['train_s'][0] / steps_a * 1e3:.3f}, "
+        f"{epd2['train_s'][0] / steps_a * 1e3:.3f} ({steps_a} steps) | AIS "
+        + " ; ".join(
+            f"{tag} epochs 0, 1: train s {v['hist']['train_s'][0]:.3f} | "
+            f"train samples/s {v['n_train'] / v['hist']['train_s'][0]:.1f} | "
+            f"step ms {v['hist']['train_s'][0] / v['steps'] * 1e3:.3f} "
+            f"({v['steps']} steps)" for tag, v in ais.items())
+        + f" | angle graph against eager (no dropout, deterministic cuDNN): "
+        f"{fmt_graph(angle_graph)} | angle train steps (fused encoder, batch "
+        f"{TRAIN_BATCH}): {fmt_times(angle_times)} | AIS train steps (batch "
+        f"{TRAIN_BATCH}, dropout 0.1): {fmt_times(ais_times)}")
+    out["times"] = {"angle": angle_times, "ais": ais_times,
+                    "angle_graph": angle_graph}
+    return out
 
 
 def main() -> None:
@@ -882,85 +1622,33 @@ def main() -> None:
                   mode_conv="once")
     bn_model = warm_batchnorm(torch, ConvMixer(**bn_cfg, generator=gen).eval(),
                               gen).to(dev)
-    b2_err = 0.0
-    parts, b2_plans = [], []
-    with torch.no_grad():
-        for tag, model, batches in (("flagship", flag, B2_BATCHES),
-                                    ("bn+maxpool+once", bn_model, (7, 128))):
-            fused = conv_mixer.make_fused_conv_mixer(model)
-            spec = fused.spec
-            dims = (spec.T, spec.E, spec.P, spec.D, spec.H, spec.num_blocks,
-                    *spec.k1, *spec.k2)
-            if lib.mmc_conv_mixer_weights_numel(*dims) != spec.numel():
-                fail(f"B2 {tag}: the kernel's weight layout disagrees with "
-                     "ops/conv_mixer.py")
+    b2_checks = {}
+    for tag, model, batches in (("flagship", flag, B2_BATCHES),
+                                ("bn+maxpool+once", bn_model, (7, 128))):
+        fused = conv_mixer.make_fused_conv_mixer(model)
+        with torch.no_grad():
             y_all = fused.encoder(x_all[:128])[..., 0].contiguous()
-            for b in batches:
-                plan = conv_mixer.b2_plan(spec, b)
-                fit = lib.mmc_conv_mixer_resident_blocks(plan.threads, plan.smem)
-                lib_smem = lib.mmc_conv_mixer_smem_bytes(*dims)
-                if lib_smem != plan.smem or not plan.smem <= card_smem \
-                        or fit < 1:
-                    fail(f"B2 {tag} B={b}: {plan} against the library's "
-                         f"{lib_smem} B, the card's {card_smem} B, {fit} "
-                         "resident")
-                b2_plans.append(f"{tag} B={b} {plan.blocks} blocks x "
-                                f"{plan.warps} warps, {plan.smem} B smem, "
-                                f"{fit} resident")
-                y = y_all[:b].contiguous()
-                got = conv_mixer.conv_mixer_fused(y, fused.weights, spec)
-                again = [conv_mixer.conv_mixer_fused(y, fused.weights, spec)
-                         for _ in range(B2_REPEATS - 1)]
-                want = conv_mixer.conv_mixer_plain(y, fused.weights, spec)
-                torch.cuda.synchronize()
-                if not torch.isfinite(got).all():
-                    fail(f"B2 {tag} B={b}: non-finite output")
-                differ = sum(not torch.equal(got, a) for a in again)
-                if differ:
-                    fail(f"B2 {tag} B={b} {plan}: {differ} of "
-                         f"{B2_REPEATS - 1} launches differ from the first")
-                err = float((got - want).abs().max())
-                b2_err = max(b2_err, err)
-                parts.append(f"{tag} B={b} {err:.3e}")
+        b2_checks[tag] = check_b2(torch, lib, tag, fused, y_all, batches)
+    b2_err = max(v["err"] for c in b2_checks.values() for v in c.values())
     say(f"[3 B2 conv_mixer_fused vs plain] max_abs_err {b2_err:.3e} "
         f"(tol {TOL_B2:g}), {B2_REPEATS} launches of each case "
-        "bit-identical | " + " ; ".join(parts) + f" | {sms} SMs, the card's "
-        f"shared memory a block {card_smem} B; plans (library agrees): "
-        + " ; ".join(b2_plans))
-    if not b2_err <= TOL_B2:
-        fail(f"B2 disagrees with its plain version: {b2_err:.3e} > {TOL_B2:g}")
+        f"bit-identical | {sms} SMs, the card's shared memory a block "
+        f"{card_smem} B; plans (library agrees): " + " ; ".join(
+            fmt_b2_plans(t, c) for t, c in b2_checks.items()))
 
     # [4] B1 forward against its plain version at the training step's rows,
-    # 1280 and the bulk 2560 rows, twice for bit-identity (the groups'
-    # partial sums are added in a fixed order); the wrapper's launch plans
-    # against the library's tiles and shared memory
-    plans = check_b1_plans(_build.load_library(), harmonic, torch)
-    enc = flag.encoder
-    w, bias, freqs = enc.embed_mlp.weight.detach(), enc.embed_mlp.bias.detach(), \
-        enc.frequencies
-    wi = enc.kernel_weight()  # the i-major weight the fused encoder keeps
-    b1_err = 0.0
-    parts = []
-    with torch.no_grad():
-        for impl in harmonic.IMPLS:
-            for rows in B1_FWD_ROWS:
-                x2d = x_all.reshape(-1, 66)[:rows].contiguous()
-                got = harmonic.harmonic_dense_fwd(x2d, w, bias, freqs, impl, wi)
-                again = harmonic.harmonic_dense_fwd(x2d, w, bias, freqs, impl, wi)
-                want = harmonic.harmonic_dense_plain(x2d, w, bias, freqs, impl)
-                torch.cuda.synchronize()
-                if not torch.isfinite(got).all():
-                    fail(f"B1 {impl} R={rows}: non-finite output")
-                if not torch.equal(got, again):
-                    fail(f"B1 {impl} R={rows}: two launches differ")
-                err = float((got - want).abs().max())
-                b1_err = max(b1_err, err)
-                parts.append(f"{impl} R={rows} {err:.3e}")
+    # 1280 and the bulk 2560 rows, twice for bit-identity; the wrapper's
+    # launch plans against the library's tiles and shared memory
+    plans = check_b1_plans(lib, harmonic, torch)
+    enc = encoder_params(flag.encoder)
+    x_b1 = x_all.reshape(-1, 66)
+    b1_errs = check_b1_fwd(torch, harmonic, x_b1, enc, harmonic.IMPLS,
+                           B1_FWD_ROWS)
+    b1_err = max(b1_errs.values())
     say(f"[4 B1 harmonic_dense_fwd vs plain] max_abs_err {b1_err:.3e} "
-        f"(tol {TOL_B1:g}); second launch bit-identical | " + " ; ".join(parts)
+        f"(tol {TOL_B1:g}); second launch bit-identical | " + " ; ".join(
+            f"{i} R={r} {v:.3e}" for (i, r), v in b1_errs.items())
         + f" | launch plans (library agrees): {plans}")
-    if not b1_err <= TOL_B1:
-        fail(f"B1 disagrees with its plain version: {b1_err:.3e} > {TOL_B1:g}")
 
     # [5] the main path: a .pt checkpoint served over HTTP on the card
     ckpt = ROOT / "build" / "chip_smoke" / "flagship.pt"
@@ -1038,92 +1726,32 @@ def main() -> None:
         pred_lat[b] = host_median_ms(lambda: p.predict(xb).cpu())
 
     with torch.no_grad():
-        fused = predictor._fused
-        spec, wts = fused.spec, fused.weights
-        b2 = {}
-        for b in B2_BATCHES:
-            y = fused.encoder(x_all[:b])[..., 0].contiguous()
-            b2[b] = (
-                queued_ms(torch, lambda: conv_mixer.conv_mixer_fused(y, wts, spec)),
-                cuda_ms(torch, lambda: conv_mixer.conv_mixer_fused(y, wts, spec)),
-                cuda_ms(torch, lambda: conv_mixer.conv_mixer_plain(y, wts, spec)),
-                host_ms(torch, lambda: conv_mixer.conv_mixer_fused(y, wts, spec)),
-                bound(*b2_work(spec, b, wts.numel())),
-                device_us(torch, lambda: conv_mixer.conv_mixer_fused(
-                    y, wts, spec), "conv_mixer_fused_kernel"),
-            )
-        rows = BULK_ROWS * 10
-        x2d = x_all.reshape(-1, 66)[:rows].contiguous()
-        b1 = {}
-        for impl in ("direct", "doubling"):
-            b1[impl] = (
-                cuda_ms(torch, lambda: harmonic.harmonic_dense_fwd(
-                    x2d, w, bias, freqs, impl, wi), reps=10),
-                cuda_ms(torch, lambda: harmonic.harmonic_dense_plain(
-                    x2d, w, bias, freqs, impl), reps=10),
-            )
-        dev_us = {
-            **{f"B1 {i} R={rows} {k}": device_us(
-                torch, lambda: harmonic.harmonic_dense_fwd(x2d, w, bias, freqs, i, wi),
-                k, reps=5)
-               for i in harmonic.IMPLS for k in B1_FWD_KERNELS},
-        }
-    bound_b2, by_b2 = b2[128][4]
-    nb1, ob1 = b1_work(rows, 66, 64, 50, "direct")
-    bound_b1, by_b1 = bound(nb1, ob1)
+        y_all = predictor._fused.encoder(x_all[:128])[..., 0].contiguous()
+    b2 = b2_times(torch, predictor._fused, y_all, B2_BATCHES)
     say(f"[6 times] {card} | B2 conv_mixer_fused ms: per call from Python "
         "(events) / device (events over calls queued behind a spin kernel) "
         "/ plain / host enqueue (bound ms, by; profiler device us/launch): "
-        + " ; ".join(f"B={b} {k:.4f}/{q:.4f}/{p:.4f}/{h:.4f} ({bd[0]:.6f}, "
-                     f"{bd[1]}; {'not measured' if us is None else f'{us:.2f}'})"
-                     for b, (q, k, p, h, bd, us) in b2.items())
-        + f" | B1 harmonic_dense_fwd R={rows} kernel/plain ms: "
-        + " ; ".join(f"{i} {k:.4f}/{p:.4f}" for i, (k, p) in b1.items())
-        + " | profiler device us/launch: " + " ; ".join(
-            f"{k} {'not measured' if v is None else f'{v:.2f}'}"
-            for k, v in dev_us.items())
+        + fmt_b2_times("flagship", b2)
         + " | Predictor.predict latency ms (host clock, to a CPU array): "
         + " ; ".join(f"b={b} {v:.3f}" for b, v in pred_lat.items())
         + f" | BatchingPredictor.predict latency ms: b=1 {bat_lat[1]:.3f} ; "
           f"b=32 {bat_lat[32]:.3f}"
-        + f" | HTTP /predict latency ms: b=1 {lat[1]:.3f} ; b=32 {lat[32]:.3f}"
-        + f" | bound ms: B1 R={rows} {bound_b1:.6f} ({by_b1})")
+        + f" | HTTP /predict latency ms: b=1 {lat[1]:.3f} ; b=32 {lat[32]:.3f}")
 
     # [7] B1-bwd against its plain version, twice for bit-identity
     gg = torch.Generator().manual_seed(SEED + 3)
     g_all = torch.randn(max(B1_BWD_ROWS), 50, generator=gg).to(dev)
-    bwd_err = {"dW": 0.0, "db": 0.0, "dx_rel": 0.0}
-    parts = []
-    with torch.no_grad():
-        for impl in ("direct", "doubling"):
-            for rows in B1_BWD_ROWS:
-                x2d = x_all.reshape(-1, 66)[:rows].contiguous()
-                gr = g_all[:rows].contiguous()
-                got = harmonic.harmonic_dense_bwd(x2d, gr, w, freqs, impl, wi)
-                again = harmonic.harmonic_dense_bwd(x2d, gr, w, freqs, impl, wi)
-                want = harmonic.harmonic_dense_bwd_plain(x2d, gr, w, freqs, impl)
-                torch.cuda.synchronize()
-                if not all(torch.isfinite(t).all() for t in got):
-                    fail(f"B1-bwd {impl} R={rows}: non-finite output")
-                if not all(torch.equal(a, b) for a, b in zip(got, again)):
-                    fail(f"B1-bwd {impl} R={rows}: two launches differ")
-                errs = {}
-                for name, a, b in zip(("dx", "dW", "db"), got, want):
-                    err = float((a - b).abs().max())
-                    scale = float(b.abs().max())
-                    if not err <= TOL_B1_BWD * scale:
-                        fail(f"B1-bwd {impl} R={rows} {name}: {err:.3e} > "
-                             f"{TOL_B1_BWD:g} x max|ref| {scale:.3e}")
-                    errs[name] = (err, err / scale)
-                bwd_err["dW"] = max(bwd_err["dW"], errs["dW"][0])
-                bwd_err["db"] = max(bwd_err["db"], errs["db"][0])
-                bwd_err["dx_rel"] = max(bwd_err["dx_rel"], errs["dx"][1])
-                parts.append(f"{impl} R={rows} dW {errs['dW'][0]:.3e} db "
-                             f"{errs['db'][0]:.3e} dx/max|dx| {errs['dx'][1]:.3e}")
+    bwd_errs = check_b1_bwd(torch, harmonic, x_b1, g_all, enc, harmonic.IMPLS,
+                            B1_BWD_ROWS, (True,))
+    bwd_err = {"dW": max(v["dW"][0] for v in bwd_errs.values()),
+               "db": max(v["db"][0] for v in bwd_errs.values()),
+               "dx_rel": max(v["dx"][1] for v in bwd_errs.values())}
     say(f"[7 B1-bwd harmonic_dense_bwd vs plain] max abs err dW "
         f"{bwd_err['dW']:.3e}, db {bwd_err['db']:.3e}; dx err / max|dx| "
         f"{bwd_err['dx_rel']:.3e} (tol {TOL_B1_BWD:g} x max|ref| each); "
-        "second launch bit-identical | " + " ; ".join(parts))
+        "second launch bit-identical | " + " ; ".join(
+            f"{i} R={r} dW {v['dW'][0]:.3e} db {v['db'][0]:.3e} dx/max|dx| "
+            f"{v['dx'][1]:.3e}" for (i, r, _), v in bwd_errs.items()))
 
     # [8] one flagship training step, fused encoder and plain, each against
     # a float64 step of the same weights and inputs
@@ -1189,44 +1817,28 @@ def main() -> None:
         if tag == "fused":
             for c in (conv_mixer.LAUNCHES, harmonic.LAUNCHES, harmonic.LAUNCHES_BWD):
                 c.reset()
-            # B1's device launches in this run, replays included, counted
-            # from 0 at its start
-            traces = traced_launches(torch, Trainer, TRACED_METHODS, B1_IN_RUN)
+            # B1's device launches in this run, replays included
+            traces = counted_launches(harmonic, Trainer, COUNTED_METHODS)
         t0 = time.perf_counter()
         with traces as in_run:
             hist = train_mixer_h36m.main(argv)
-        runs[tag] = (hist, time.perf_counter() - t0,
-                     save / "h36_3d_25frames_ckpt" / _runner.WEIGHTS_FILE, argv)
+        runs[tag] = (hist, time.perf_counter() - t0)
         if tag == "fused":
             # serve the trained checkpoint through B2, still on the path
-            args = train_mixer_h36m.parse_args(argv)
-            served = Predictor.from_checkpoint(
-                _runner.build_conv_mixer(args, 66, 66, 10, 25), str(runs[tag][2]),
-                device=dev)
             test_ds = H36MDataset(str(data_dir), 10, 25, 1, actions=["walking"],
                                   split=2)
             dim_used = test_ds.dim_used
             win = torch.as_tensor(np.stack([test_ds[i] for i in range(32)]))
             x_test = (win[:, :10, dim_used] * 1e-3).contiguous()
-            got = served.predict(x_test)
-            torch.cuda.synchronize()
+            _, got, serve_err, _ = serve_checks(
+                torch, dev, save / "h36_3d_25frames_ckpt" / _runner.STATE_FILE,
+                x_test, False)
             train_launches = {"conv_mixer_fused": conv_mixer.LAUNCHES.value,
                               "harmonic_dense_fwd": harmonic.LAUNCHES.value,
                               "harmonic_dense_bwd": harmonic.LAUNCHES_BWD.value}
-            plain_net = _runner.build_conv_mixer(
-                argparse.Namespace(**{**vars(args), "fused_encoder": False}),
-                66, 66, 10, 25)
-            plain_net.load_state_dict(torch.load(runs[tag][2], weights_only=True),
-                                      strict=True)
-            with torch.no_grad():
-                want = plain_net.to(dev).eval()(x_test.to(dev))
-            # trained outputs are in mm (hundreds): the error is taken
-            # relative to the output's scale
-            serve_scale = max(1.0, float(want.abs().max()))
-            serve_err = float((got - want).abs().max()) / serve_scale
             b1_run = in_run
     # the Python counters above see the eager warm-up steps and the
-    # captures, not the replays; the traces see every device launch
+    # captures, not the replays; the device counters see every launch
     b1_train = {k: b1_run["_train_sums"][k] for k in B1_IN_RUN}
     for save in work.glob("epd_*"):
         shutil.rmtree(save, ignore_errors=True)
@@ -1244,14 +1856,14 @@ def main() -> None:
         f"{[float(v) for v in hist['metrics']['auc_pck']]} | Python launch "
         f"counts on the training path {train_launches} for {steps} train "
         f"steps (eager warm-up, captures, serving) | device launches in the "
-        f"CLI's run (profiler traces of each training and evaluation call):"
-        f" training {b1_train} for {steps} train steps, evaluation "
+        f"CLI's run (the kernels' device counters, read around each training"
+        f" and evaluation call): training {b1_train} for {steps} train steps, evaluation "
         f"{b1_run['_eval_sums']} | deterministic cuDNN, --epochs_per_dispatch"
         f" 2 against 1: per-epoch history max rel {epd_err:.3e} (tol "
         f"{TOL_EPD:g}; train loss {epd_hist2['train']} against "
         f"{epd_hist1['train']}) | trained .pt served through B2 "
         f"(b=32 test windows) vs the plain forward: max abs err / max(1, "
-        f"max|out| = {serve_scale:.1f}) {serve_err:.3e} (tol {TOL_E2E:g}) | "
+        f"max|out|) {serve_err:.3e} (tol {TOL_E2E:g}) | "
         f"plain-encoder run train loss {runs['plain'][0]['train']}")
     if not all(np.isfinite(float(v)) for v in values):
         fail(f"non-finite loss or metric in {values}")
@@ -1273,60 +1885,20 @@ def main() -> None:
 
     # [10] training times (host clock around work ending in a host read;
     # kernels by CUDA events and the profiler)
-    # the fused run's calls were traced (phase 9); the same CLI's untraced
-    # --epochs_per_dispatch 2 run of the epd check beside it
+    # the fused run of phase 9 (device counters read around each call) and
+    # the same CLI's --epochs_per_dispatch 2 run of the epd check beside it
     per = {}
     for tag, h, run_s in (
-            ("fused, each training and evaluation call traced",
+            ("fused, B1's device counters read around each call",
              *runs["fused"][:2]),
-            ("fused, untraced, deterministic cuDNN", epd_hist2, None),
+            ("fused, deterministic cuDNN", epd_hist2, None),
             ("plain", *runs["plain"][:2])):
         per[tag] = {"train_s": h["train_s"], "epoch_s": h["epoch_s"],
                     "samples_per_s": [n_train / t for t in h["train_s"]],
                     "step_ms": [t / steps_per_epoch * 1e3 for t in h["train_s"]],
                     "run_s": run_s}
-    # B1 at the training step's rows and the bulk rows; the yardsticks are
-    # cuBLAS's f32 products alone on a precomputed embedding (no trig)
-    from motionmixerconv_tpu_torch.models.encoding import harmonic_features
-
-    if torch.backends.cuda.matmul.allow_tf32:
-        fail("TF32 is on: the cuBLAS yardsticks would not be float32")
-    bwd_t, fwd_t, b1_dev = {}, {}, {}
-    with torch.no_grad():
-        for rows in B1_BWD_ROWS:
-            x2d = x_all.reshape(-1, 66)[:rows].contiguous()
-            gr = g_all[:rows].contiguous()
-            feats = harmonic_features(x2d, 64, float(freqs[0]), "direct", freqs)
-            for dx_on in (False, True):
-                bwd_t[(rows, dx_on)] = (
-                    cuda_ms(torch, lambda: harmonic.harmonic_dense_bwd(
-                        x2d, gr, w, freqs, "direct", wi, need_dx=dx_on), reps=10),
-                    cuda_ms(torch, lambda: harmonic.harmonic_dense_bwd_plain(
-                        x2d, gr, w, freqs, "direct", need_dx=dx_on), reps=10),
-                    bound(*b1_bwd_work(rows, 66, 64, 50, "direct", dx_on)),
-                )
-            bwd_t[(rows, "doubling")] = cuda_ms(
-                torch, lambda: harmonic.harmonic_dense_bwd(
-                    x2d, gr, w, freqs, "doubling", wi, need_dx=False), reps=10)
-            fwd_t[rows] = {
-                "ms": cuda_ms(torch, lambda: harmonic.harmonic_dense_fwd(
-                    x2d, w, bias, freqs, "direct", wi), reps=10),
-                "plain_ms": cuda_ms(torch, lambda: harmonic.harmonic_dense_plain(
-                    x2d, w, bias, freqs, "direct"), reps=10),
-                "bound": bound(*b1_work(rows, 66, 64, 50, "direct")),
-                "library_ms": cuda_ms(
-                    torch, lambda: torch.nn.functional.linear(feats, w, bias),
-                    reps=10),
-                "dw_library_ms": cuda_ms(torch, lambda: gr.t() @ feats, reps=10)}
-            for k in B1_FWD_KERNELS:
-                b1_dev[f"fwd R={rows} {k}"] = device_us(
-                    torch, lambda: harmonic.harmonic_dense_fwd(
-                        x2d, w, bias, freqs, "direct", wi), k, reps=5)
-            for k in B1_BWD_KERNELS:
-                b1_dev[f"bwd+dx R={rows} {k}"] = device_us(
-                    torch, lambda: harmonic.harmonic_dense_bwd(
-                        x2d, gr, w, freqs, "direct", wi, need_dx=True), k, reps=5)
-        r0 = B1_BWD_ROWS[0]  # the training step's rows
+    # B1 at the training step's rows and the bulk rows
+    b1t = b1_times(torch, harmonic, x_b1, g_all, enc, B1_BWD_ROWS)
     from motionmixerconv_tpu_torch.data.constants import H36M_DIM_USED_XYZ
     from motionmixerconv_tpu_torch.train import make_optimizer
 
@@ -1368,24 +1940,7 @@ def main() -> None:
                 "" if p["run_s"] is None
                 else f" | whole CLI run s {p['run_s']:.2f}")
             for t, p in per.items())
-        + " | B1-bwd direct kernel/plain ms (bound ms, by): "
-        + " ; ".join(
-            f"R={r} {'dW+db+dx' if d else 'dW+db'} {k:.4f}/{p:.4f} "
-            f"({b[0]:.5f}, {b[1]})"
-            for (r, d), v in bwd_t.items() if d != "doubling" for k, p, b in [v])
-        + " | B1-bwd doubling dW+db kernel ms: "
-        + " ; ".join(f"R={r} {v:.4f}" for (r, d), v in bwd_t.items()
-                     if d == "doubling")
-        + " | B1-fwd direct kernel/plain ms (bound ms, by): " + " ; ".join(
-            f"R={r} {t['ms']:.4f}/{t['plain_ms']:.4f} ({t['bound'][0]:.5f}, "
-            f"{t['bound'][1]})" for r, t in fwd_t.items())
-        + " | cuBLAS f32 yardsticks on a precomputed embedding (no trig) ms: "
-        + " ; ".join(f"R={r} F.linear(embed, W, b) {t['library_ms']:.4f}, "
-                     f"g.t() @ embed {t['dw_library_ms']:.4f}"
-                     for r, t in fwd_t.items())
-        + " | profiler device us/launch: " + " ; ".join(
-            f"{k} {'not measured' if v is None else f'{v:.2f}'}"
-            for k, v in b1_dev.items())
+        + f" | {fmt_b1_times(b1t)}"
         + f" | graph against eager (dropout off, deterministic cuDNN): "
         f"{fmt_graph(flag_graph)} | dropout 0.1 under graphs: outputs that "
         f"differ between two replays of a captured training forward "
@@ -1511,28 +2066,15 @@ def main() -> None:
     t0 = time.perf_counter()
     ar_hist = train_autoreg_mixer_h36m.main(ar_argv)
     ar_run_s = time.perf_counter() - t0
-    served_ar = Predictor.from_checkpoint(
-        None, str(ar_save / "h36_ar_25frames_ckpt" / _runner.STATE_FILE),
-        device=dev)
     x_ar = win[:, :10, dim_used].contiguous()  # mm: this path feeds raw input
-    got = served_ar.predict(x_ar)
-    server = PredictionServer(served_ar, port=0, warmup=True)
-    server.start_background()
-    http_ar = post(f"http://127.0.0.1:{server.port}", "/predict",
-                   {"inputs": x_ar[:5].tolist()})["outputs"]
-    server.close()
-    torch.cuda.synchronize()
+    served_ar, got, ar_err, ar_http_err = serve_checks(
+        torch, dev, ar_save / "h36_ar_25frames_ckpt" / _runner.STATE_FILE,
+        x_ar, True)
     ar_launches = {k: c.value for k, c in counters.items()}
     ar_pred_lat = host_median_ms(lambda: served_ar.predict(x_ar[:1]).cpu())
     ar_epd_err, ar_epd2, ar_epd1 = epd_check(
         torch, train_autoreg_mixer_h36m.main,
         [*AR_ARGV, "--data_dir", str(data_dir)], work / "epd_autoregressive")
-    with torch.no_grad():
-        want = served_ar.model(x_ar.to(dev))  # the loaded nn.Module, plain
-    ar_scale = max(1.0, float(want.abs().max()))
-    ar_err = float((got - want).abs().max()) / ar_scale
-    http_ar = torch.tensor(http_ar, dtype=torch.float32)
-    ar_http_err = float((http_ar - want[:5].cpu()).abs().max()) / ar_scale
     values = [*ar_hist["train"], *ar_hist["val"], *ar_hist["test"],
               *ar_hist["metrics"]["mpjpe"], *ar_hist["metrics"]["auc_pck"]]
     say(f"[12 autoregressive CLI {' '.join(AR_ARGV + EPD2)}] model "
@@ -1548,8 +2090,8 @@ def main() -> None:
         f"2 against 1: per-epoch history max rel {ar_epd_err:.3e} (tol "
         f"{TOL_EPD:g}; train loss {ar_epd2['train']} against {ar_epd1['train']}) | train_state.pt "
         f"served through B3 (b=32 "
-        f"test windows) vs the plain forward: max abs err / max(1, max|out| = "
-        f"{ar_scale:.1f}) {ar_err:.3e}; /predict b=5 {ar_http_err:.3e} (tol "
+        f"test windows) vs the plain forward: max abs err / max(1, max|out|) "
+        f"{ar_err:.3e}; /predict --arch auto b=5 {ar_http_err:.3e} (tol "
         f"{TOL_E2E:g}) | {card}: served Predictor.predict b=1 "
         f"{ar_pred_lat:.3f} ms (host clock, to a CPU array)")
     if not all(np.isfinite(float(v)) for v in values):
@@ -1611,53 +2153,35 @@ def main() -> None:
     # [14] B4 against its plain version at the AMASS default and the
     # variants it takes, B4_REPEATS launches of each case bit-identical
     gm = torch.Generator().manual_seed(SEED + 9)
-    b4_err, parts, b4_fused, b4_plans = 0.0, [], {}, []
-    with torch.no_grad():
-        for tag, (cfg, batches) in B4_SHAPES.items():
-            model = warm_batchnorm(torch, MlpMixer(**cfg, generator=gm).eval(),
-                                   gm).to(dev)
-            fused = mlp_mixer.make_fused_mlp_mixer(model)
-            spec = fused.spec
-            if (spec.uses_scratch, spec.wbuf_floats() == 0) != (
-                    tag == "long_window", tag == "wide"):
-                fail(f"B4 {tag}: uses_scratch {spec.uses_scratch}, weight "
-                     f"buffer {spec.wbuf_floats()} floats")
-            x_m = (torch.randn(max(batches), spec.T, spec.D, generator=gm)
-                   * 0.5).to(dev)
-            b4_fused[tag] = (fused, x_m, model_floats(model))
-            b4_plans.append(f"{tag} {b4_launch(spec, max(batches))}")
-            for b in batches:
-                xb = x_m[:b].contiguous()
-                got = mlp_mixer.mlp_mixer_fused(xb, fused.weights, spec)
-                again = [mlp_mixer.mlp_mixer_fused(xb, fused.weights, spec)
-                         for _ in range(B4_REPEATS - 1)]
-                want = mlp_mixer.mlp_mixer_plain(xb, fused.weights, spec)
-                module = model(xb)
-                torch.cuda.synchronize()
-                if not torch.isfinite(got).all():
-                    fail(f"B4 {tag} B={b}: non-finite output")
-                differ = sum(not torch.equal(got, a) for a in again)
-                if differ:
-                    fail(f"B4 {tag} B={b}: {differ} of {B4_REPEATS - 1} "
-                         "launches differ from the first")
-                err = float((got - want).abs().max())
-                b4_err = max(b4_err, err)
-                parts.append(f"{tag} B={b} {err:.3e} (module "
-                             f"{float((got - module).abs().max()):.1e})")
+    b4_checks, b4_fused, b4_plans = {}, {}, []
+    for tag, (cfg, batches) in B4_SHAPES.items():
+        model = warm_batchnorm(torch, MlpMixer(**cfg, generator=gm).eval(),
+                               gm).to(dev)
+        fused = mlp_mixer.make_fused_mlp_mixer(model)
+        spec = fused.spec
+        if (spec.uses_scratch, spec.wbuf_floats() == 0) != (
+                tag == "long_window", tag == "wide"):
+            fail(f"B4 {tag}: uses_scratch {spec.uses_scratch}, weight "
+                 f"buffer {spec.wbuf_floats()} floats")
+        x_m = (torch.randn(max(batches), spec.T, spec.D, generator=gm)
+               * 0.5).to(dev)
+        b4_fused[tag] = (fused, x_m, model_floats(model))
+        b4_plans.append(f"{tag} {b4_launch(spec, max(batches))}")
+        b4_checks[tag] = check_b4(torch, tag, fused, model, x_m, batches)
+    b4_err = max(v["err"] for c in b4_checks.values() for v in c.values())
     say(f"[14 B4 mlp_mixer_fused vs plain] max_abs_err {b4_err:.3e} (tol "
         f"{TOL_B4:g}), {B4_REPEATS} launches of each case bit-identical, "
         "activations in scratch "
         "(long_window) and weights read in place (wide) as the wrapper "
-        "placed them | " + " ; ".join(parts)
+        "placed them | " + " ; ".join(
+            f"{t} B={b} {v['err']:.3e} (module {v['module_err']:.1e})"
+            for t, c in b4_checks.items() for b, v in c.items())
         + " | launch per shape at its largest batch: " + " ; ".join(b4_plans))
-    if not b4_err <= TOL_B4:
-        fail(f"B4 disagrees with its plain version: {b4_err:.3e} > {TOL_B4:g}")
 
     # [15] the AMASS path: the CLI at its default widths for 2 epochs on a
     # synthetic corpus, its train_state.pt served through B4 in process and
     # over HTTP with --arch auto (launch counts reset just before the CLI and
     # read just after the serving)
-    from motionmixerconv_tpu_torch import serving_server
     from motionmixerconv_tpu_torch.cli import train_mixer_amass
     from motionmixerconv_tpu_torch.data import AMASSDataset
     from motionmixerconv_tpu_torch.data.constants import AMASS_DIM_USED, AMASS_SPLITS
@@ -1679,31 +2203,17 @@ def main() -> None:
     t0 = time.perf_counter()
     am_hist = train_mixer_amass.main(am_argv)
     am_run_s = time.perf_counter() - t0
-    am_state = str(am_save / "amass_3d_25frames_ckpt" / _runner.STATE_FILE)
-    served_am = Predictor.from_checkpoint(None, am_state, device=dev)
     am_test = AMASSDataset(str(amass_dir), 10, 25, 1, split=2)
     am_win = torch.as_tensor(np.stack([am_test[i] for i in range(32)]))
     x_am = am_win.reshape(32, 35, -1)[:, :10, AMASS_DIM_USED].contiguous()
-    got = served_am.predict(x_am)
-    http_pred = serving_server.load_predictor(
-        serving_server.build_parser().parse_args(
-            ["--model_path", am_state, "--arch", "auto"]), dev)
-    am_server = PredictionServer(http_pred, port=0, warmup=True)
-    am_server.start_background()
-    am_base = f"http://127.0.0.1:{am_server.port}"
-    http_am = post(am_base, "/predict", {"inputs": x_am[:5].tolist()})["outputs"]
-    torch.cuda.synchronize()
+    served_am, got, am_err, am_http_err = serve_checks(
+        torch, dev, am_save / "amass_3d_25frames_ckpt" / _runner.STATE_FILE,
+        x_am, True)
     am_launches = {k: c.value for k, c in counters.items()}
     am_plain_calls = mlp_mixer.PLAIN_CALLS.value
     am_epd_err, am_epd2, am_epd1 = epd_check(
         torch, train_mixer_amass.main,
         [*AMASS_ARGV, "--data_dir", str(amass_dir)], work / "epd_amass")
-    with torch.no_grad():
-        want = served_am.model(x_am.to(dev))  # the loaded nn.Module, plain
-    am_scale = max(1.0, float(want.abs().max()))
-    am_err = float((got - want).abs().max()) / am_scale
-    http_am = torch.tensor(http_am, dtype=torch.float32)
-    am_http_err = float((http_am - want[:5].cpu()).abs().max()) / am_scale
     n_train_am = len(AMASSDataset(str(amass_dir), 10, 25, 1, split=0))
     n_val_am = len(AMASSDataset(str(amass_dir), 10, 25, 1, split=1))
     am_steps = -(-n_train_am // am_args.batch_size)
@@ -1718,8 +2228,8 @@ def main() -> None:
         f"{am_plain_calls} | deterministic cuDNN, --epochs_per_dispatch 2 "
         f"against 1: per-epoch history max rel {am_epd_err:.3e} (tol "
         f"{TOL_EPD:g}; train loss {am_epd2['train']} against {am_epd1['train']}) | train_state.pt served through B4 (b=32 test "
-        f"windows) vs the plain forward: max abs err / max(1, max|out| = "
-        f"{am_scale:.3f}) {am_err:.3e}; /predict --arch auto b=5 "
+        f"windows) vs the plain forward: max abs err / max(1, max|out|) "
+        f"{am_err:.3e}; /predict --arch auto b=5 "
         f"{am_http_err:.3e} (tol {TOL_E2E:g})")
     if not all(np.isfinite(float(v)) for v in values):
         fail(f"AMASS run: non-finite loss or metric in {values}")
@@ -1736,24 +2246,7 @@ def main() -> None:
              f"{am_err:.3e}, /predict err {am_http_err:.3e}")
 
     # [16] B4, serving and AMASS training times
-    b4_t, b4_dev = {}, {}
-    with torch.no_grad():
-        fused, x_m, n_model = b4_fused["amass"]
-        spec, wts = fused.spec, fused.weights
-        b4_spec = spec
-        for b in (1, 32, 128):
-            xb = x_m[:b].contiguous()
-            b4_t[b] = (
-                cuda_ms(torch, lambda: mlp_mixer.mlp_mixer_fused(xb, wts, spec)),
-                cuda_ms(torch, lambda: mlp_mixer.mlp_mixer_plain(xb, wts, spec)),
-                bound(*b4_work(spec, b, n_model)),
-                queued_ms(torch, lambda: mlp_mixer.mlp_mixer_fused(xb, wts, spec)))
-            b4_dev[b] = device_us(
-                torch, lambda: mlp_mixer.mlp_mixer_fused(xb, wts, spec),
-                "mlp_mixer_kernel")
-            if b4_dev[b] is None:
-                fail(f"B4 B={b}: the profiler shows no device time for "
-                     "mlp_mixer_kernel")
+    b4_t = b4_times(torch, *b4_fused["amass"], (1, 32, 128))
     del b4_fused
     am_pred_lat = {}
     x_bulk_am = (torch.randn(BULK_ROWS, 10, 54, generator=gm) * 0.3)
@@ -1761,8 +2254,11 @@ def main() -> None:
         xb = x_bulk_am[:b].clone()
         served_am.predict(xb).cpu()
         am_pred_lat[b] = host_median_ms(lambda: served_am.predict(xb).cpu())
+    am_server = PredictionServer(served_am, port=0, warmup=True)
+    am_server.start_background()
     payload = {"inputs": x_am[:1].tolist()}
-    am_http_lat = host_median_ms(lambda: post(am_base, "/predict", payload))
+    am_http_lat = host_median_ms(lambda: post(
+        f"http://127.0.0.1:{am_server.port}", "/predict", payload))
     am_server.close()
     def amass_trainer(regularization, **opt):
         model = MlpMixer(**dict(AMASS_MLP, regularization=regularization),
@@ -1785,14 +2281,8 @@ def main() -> None:
     am_times = train_times(torch, amass_trainer(AMASS_MLP["regularization"]),
                            frames, starts, w, None)
     say(f"[16 AMASS times] {card} | B4 mlp_mixer_fused ms: per call from "
-        "Python / device (calls queued) / plain (bound ms, by): " + " ; ".join(
-            f"B={b} {k:.4f}/{q:.4f}/{p:.4f} ({bd[0]:.5f}, {bd[1]})"
-            for b, (k, p, bd, q) in b4_t.items())
-        + " | launches: " + " ; ".join(
-            f"B={b} {b4_launch(b4_spec, b)}" for b in b4_t)
-        + " | profiler device us/launch: " + " ; ".join(
-            f"B={b} {'not measured' if v is None else f'{v:.2f}'}"
-            for b, v in b4_dev.items())
+        "Python / device (calls queued) / plain (bound ms, by; profiler "
+        "device us/launch); launch: " + fmt_b4_times("amass", b4_t)
         + " | Predictor.predict latency ms (host clock, to a CPU array): "
         + " ; ".join(f"b={b} {v:.3f}" for b, v in am_pred_lat.items())
         + f" | HTTP /predict b=1 {am_http_lat:.3f} ms"
@@ -1808,32 +2298,55 @@ def main() -> None:
           f"graph against eager (dropout off): {fmt_graph(am_graph)} | train "
           f"steps (batch {batch}, dropout 0.1): {fmt_times(am_times)}")
 
+    # [17] the kernels at the angle and AIS paths' shapes; [18]-[20] those
+    # paths, each from its CLI at its defaults to its served checkpoint
+    models = cli_models(torch)
+    new = new_shape_kernels(torch, dev, _build.load_library(), card, models)
+    paths = angle_and_ais_paths(torch, np, dev, card, work, data_dir,
+                                counters)
+
+    def timed(v, **extra):
+        """A times entry of b1_times, b2_times or b4_times as the kernels
+        line's keys."""
+        out = {"ms": v["ms"], "plain_ms": v["plain_ms"],
+               "bound_ms": v["bound"][0], "bound_by": v["bound"][1]}
+        out.update({k: v[k] for k in ("device_ms", "library_ms",
+                                      "doubling_ms", "device_us") if k in v})
+        return {**out, **extra}
+
+    r0, rb = B1_BWD_ROWS  # the training step's rows; the bulk batch's
+    fwd_t, bwd_t, b1_dev = b1t["fwd"], b1t["bwd"], b1t["device_us"]
+    nb1 = new["b1_times"]
     kernels = [
         {"name": "conv_mixer_fused", "route": "cuda",
          "source": "motionmixerconv_tpu_torch/csrc/conv_mixer_fused.cu",
          "replaces": "motionmixerconv_tpu/ops/pallas_conv_mixer.py:579",
-         "launches": launches["conv_mixer_fused"], "max_abs_err": b2_err,
-         "ms": b2[128][1], "plain_ms": b2[128][2], "bound_ms": bound_b2,
-         "bound_by": by_b2, "library_ms": None, "device_ms": b2[128][0],
-         "by_batch": {str(b): {"ms": k, "device_ms": q, "plain_ms": p,
-                               "bound_ms": bd[0], "device_us": us}
-                      for b, (q, k, p, h, bd, us) in b2.items()}},
+         "launches": launches["conv_mixer_fused"], "max_abs_err": max(
+             b2_err, *(v["err"] for c in new["b2"].values()
+                       for v in c.values())),
+         **timed(b2[128], library_ms=None),
+         "by_batch": {str(b): timed(v) for b, v in b2.items()},
+         "new_shapes": {f"{t} B={b}": timed(
+             v, max_abs_err=new["b2"][t][b]["err"])
+             for t, c in new["b2_times"].items() for b, v in c.items()}},
         {"name": "harmonic_dense_fwd", "route": "cuda",
          "source": "motionmixerconv_tpu_torch/csrc/harmonic_dense.cu",
          "replaces": "motionmixerconv_tpu/ops/pallas_harmonic.py:54",
-         "launches": launches["harmonic_dense_fwd"], "max_abs_err": b1_err,
+         "launches": launches["harmonic_dense_fwd"], "max_abs_err": max(
+             b1_err, *new["b1_fwd"].values()),
          "device_launches_per_train_step": b1_train[B1_IN_RUN[0]] / steps,
-         "ms": b1["direct"][0], "plain_ms": b1["direct"][1], "bound_ms": bound_b1,
-         "bound_by": by_b1, "library_ms": fwd_t[BULK_ROWS * 10]["library_ms"],
+         **timed(fwd_t[rb]),
          "library_note": "F.linear(embed, W, b), cuBLAS f32, on a precomputed "
                          "embedding: the contraction without the trig",
-         "rows": BULK_ROWS * 10,
-         "by_rows": {str(r): {"ms": t["ms"], "plain_ms": t["plain_ms"],
-                              "bound_ms": t["bound"][0],
-                              "library_ms": t["library_ms"],
-                              "device_us": {k: b1_dev[f"fwd R={r} {k}"]
-                                            for k in B1_FWD_KERNELS}}
-                     for r, t in fwd_t.items()}},
+         "rows": rb,
+         "by_rows": {str(r): timed(t, device_us={
+             k: b1_dev[f"fwd R={r} {k}"] for k in B1_FWD_KERNELS})
+             for r, t in fwd_t.items()},
+         "angle_device_launches_per_train_step":
+             paths["angle"]["b1_train"][B1_IN_RUN[0]] / paths["angle"]["steps"],
+         "new_shapes": {f"angle (D, n, E) {B1_ANGLE_SHAPE} R={r}": timed(
+             t, max_abs_err=new["b1_fwd"][("direct", r)])
+             for r, t in nb1["fwd"].items()}},
         {"name": "harmonic_dense_bwd", "route": "cuda",
          "source": "motionmixerconv_tpu_torch/csrc/harmonic_dense.cu",
          "replaces": "motionmixerconv_tpu/ops/pallas_harmonic.py:104",
@@ -1841,24 +2354,22 @@ def main() -> None:
          "device_launches_per_train_step": b1_train[B1_IN_RUN[1]] / steps,
          "max_abs_err": max(bwd_err["dW"], bwd_err["db"]),
          "dx_err_over_max": bwd_err["dx_rel"],
-         "ms": bwd_t[(r0, False)][0], "plain_ms": bwd_t[(r0, False)][1],
-         "bound_ms": bwd_t[(r0, False)][2][0],
-         "bound_by": bwd_t[(r0, False)][2][1],
-         "library_ms": fwd_t[r0]["dw_library_ms"],
+         **timed(bwd_t[(r0, False)]),
          "library_note": "g.t() @ embed, cuBLAS f32, on a precomputed "
                          "embedding: dW's contraction without the trig or db",
          "rows": r0,
-         "with_dx": {"ms": bwd_t[(r0, True)][0],
-                     "plain_ms": bwd_t[(r0, True)][1],
-                     "bound_ms": bwd_t[(r0, True)][2][0]},
-         "by_rows": {str(r): {"ms": bwd_t[(r, False)][0],
-                              "plain_ms": bwd_t[(r, False)][1],
-                              "bound_ms": bwd_t[(r, False)][2][0],
-                              "library_ms": fwd_t[r]["dw_library_ms"],
-                              "with_dx_ms": bwd_t[(r, True)][0],
-                              "device_us": {k: b1_dev[f"bwd+dx R={r} {k}"]
-                                            for k in B1_BWD_KERNELS}}
-                     for r in B1_BWD_ROWS}},
+         "with_dx": timed(bwd_t[(r0, True)]),
+         "by_rows": {str(r): timed(bwd_t[(r, False)], with_dx_ms=bwd_t[
+             (r, True)]["ms"], device_us={
+                 k: b1_dev[f"bwd+dx R={r} {k}"] for k in B1_BWD_KERNELS})
+             for r in B1_BWD_ROWS},
+         "angle_device_launches_per_train_step":
+             paths["angle"]["b1_train"][B1_IN_RUN[1]] / paths["angle"]["steps"],
+         "new_shapes": {
+             f"angle (D, n, E) {B1_ANGLE_SHAPE} R={r} "
+             f"{'dW+db+dx' if dx else 'dW+db'}": timed(t, err_over_max={
+                 k: e[1] for k, e in new["b1_bwd"][("direct", r, dx)].items()})
+             for (r, dx), t in nb1["bwd"].items()}},
         {"name": "conv_mixer_mc", "route": "cuda",
          "source": "motionmixerconv_tpu_torch/csrc/conv_mixer_mc.cu",
          "replaces": "motionmixerconv_tpu/ops/pallas_conv_mixer.py:465",
@@ -1878,19 +2389,22 @@ def main() -> None:
         {"name": "mlp_mixer_fused", "route": "cuda",
          "source": "motionmixerconv_tpu_torch/csrc/mlp_mixer_fused.cu",
          "replaces": "motionmixerconv_tpu/ops/pallas_mixer.py:278",
-         "launches": am_launches["mlp_mixer_fused"], "max_abs_err": b4_err,
-         "ms": b4_t[128][0], "plain_ms": b4_t[128][1],
-         "bound_ms": b4_t[128][2][0], "bound_by": b4_t[128][2][1],
-         "library_ms": None, "device_ms": b4_t[128][3],
-         "by_batch": {str(b): {"ms": k, "device_ms": q, "plain_ms": p,
-                               "bound_ms": bd[0], "device_us": b4_dev[b]}
-                      for b, (k, p, bd, q) in b4_t.items()}},
+         "launches": am_launches["mlp_mixer_fused"], "max_abs_err": max(
+             b4_err, *(v["err"] for v in new["b4"].values())),
+         **timed(b4_t[128], library_ms=None),
+         "by_batch": {str(b): timed(v) for b, v in b4_t.items()},
+         "new_shapes": {f"angle_mlp B={b}": timed(
+             v, max_abs_err=new["b4"][b]["err"])
+             for b, v in new["b4_times"].items()}},
     ]
     for k in kernels:
         k["launches_by_path"] = {"serve": launches.get(k["name"], 0),
                                  "train": train_launches.get(k["name"], 0),
                                  "autoregressive": ar_launches.get(k["name"], 0),
-                                 "amass": am_launches[k["name"]]}
+                                 "amass": am_launches[k["name"]],
+                                 **{tag: paths[tag]["launches"][k["name"]]
+                                    for tag in ("angle", "angle_autoregressive",
+                                                "ais", "ais_autoregressive")}}
     say(json.dumps({"kernels": kernels}))
     say(card)
     say(json.dumps({"ok": True, "device": {

@@ -1,15 +1,15 @@
-"""The training-run drivers behind the H36M and AMASS CLIs.
+"""The training-run drivers behind the H36M, AIS and AMASS CLIs.
 
 Counterpart of ``motionmixerconv_tpu/cli/_runner.py`` for the direct and the
-autoregressive H36M paths and the AMASS MlpMixer path: build the model from
-the flags, load the three splits, train epoch by epoch, validate, test (the
-grouped test over the H36M actions; AMASS's 22-joint scatter test), log,
-and write a checkpoint every epoch. With ``--epochs_per_dispatch`` K > 1
-each chunk of K epochs runs as ``Trainer.run_epochs_fused`` (one host read
-a chunk) and is checkpointed at its last epoch, as the JAX drivers'
+autoregressive H36M paths (both loss types), the direct and autoregressive
+AIS paths and the AMASS MlpMixer path: build the model from the flags, load
+the three splits, train epoch by epoch, validate, test (the grouped test
+over the H36M or AIS test actions; AMASS's 22-joint scatter test), log, and
+write a checkpoint every epoch. With ``--epochs_per_dispatch`` K > 1 each
+chunk of K epochs runs as ``Trainer.run_epochs_fused`` (one host read a
+chunk) and is checkpointed at its last epoch, as the JAX drivers'
 ``_run_fused_chunks`` do. ``model_from_checkpoint_meta`` rebuilds a trained
-model from its checkpoint's stored flags. The AIS drivers land with their
-slice.
+model from its checkpoint's stored flags.
 """
 
 from __future__ import annotations
@@ -22,8 +22,11 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..data import AMASSDataset, H36MDataset
-from ..data.constants import AMASS_DIM_USED, H36M_DIM_USED_XYZ, define_actions
+from ..data import AISDataset, AMASSDataset, H36MDataset
+from ..data.constants import (AIS_DIM_USED, AIS_TEST_ACTIONS,
+                              AIS_TRAIN_ACTIONS, AIS_VAL_ACTIONS,
+                              AMASS_DIM_USED, H36M_DIM_USED_ANGLE,
+                              H36M_DIM_USED_XYZ, define_actions)
 from ..logging import MetricLogger
 from ..models import ConvMixer, MlpMixer
 from ..serving import resolve_device
@@ -32,7 +35,13 @@ from ..train import (AutoregressiveTrainer, Trainer, make_optimizer,
 
 STATE_FILE = "train_state.pt"  # full training state, for --resume
 WEIGHTS_FILE = "model.pt"      # reference-layout weights, for serving
-METRIC_NAMES = ("mpjpe", "auc_pck")  # the test kinds' two metrics
+METRIC_NAMES = ("mpjpe", "auc_pck")  # the xyz test kinds' two metrics
+
+
+def _h36m_metric_names(loss_type: str) -> tuple:
+    """The H36M test kinds' two metrics for ``loss_type``."""
+    return METRIC_NAMES if loss_type == "mpjpe" else ("euler_angle",
+                                                      "joint_angle")
 
 
 def build_conv_mixer(args, dim_in: int, dim_out: int, in_ntp: int,
@@ -117,11 +126,14 @@ def _steps_per_epoch(n: int, batch_size: int) -> int:
 
 
 def _h36m_splits(args, input_n: int, output_n: int):
-    """(train, validation, {action: test}) H36M xyz corpora of
-    (input_n + output_n)-frame windows."""
+    """(train, validation, {action: test}) H36M corpora of (input_n +
+    output_n)-frame windows: xyz for the mpjpe loss, expmap angles for the
+    angle loss."""
+    mode = "xyz" if args.loss_type == "mpjpe" else "angle"
+
     def split(s, actions=None):
         return H36MDataset(args.data_dir, input_n, output_n, args.skip_rate,
-                           actions=actions, split=s)
+                           actions=actions, split=s, mode=mode)
 
     tests = {a: split(2, [a]) for a in define_actions(args.actions_to_consider)}
     return split(0), split(1), tests
@@ -130,15 +142,15 @@ def _h36m_splits(args, input_n: int, output_n: int):
 def _model_and_optimizer(args, model: Optional[torch.nn.Module],
                          init_state_dict, device: torch.device, in_ntp: int,
                          out_ntp: int, n_train: int):
-    """The model (from the H36M flags, seeded by ``args.seed``, unless
-    given: an MlpMixer with ``model_type mlp``, else a ConvMixer;
-    ``init_state_dict`` loaded strictly over it) on ``device``, and its Adam
-    with coupled L2 1e-5 and per-batch MultiStepLR."""
+    """The model (from the flags, ``args.pose_dim`` wide, seeded by
+    ``args.seed``, unless given: an MlpMixer with ``model_type mlp``, else a
+    ConvMixer; ``init_state_dict`` loaded strictly over it) on ``device``,
+    and its Adam with coupled L2 1e-5 and per-batch MultiStepLR."""
     seed = getattr(args, "seed", 0)
     torch.manual_seed(seed)  # the dropout stream (CPU and CUDA generators)
     if model is None:
         gen = torch.Generator().manual_seed(seed)
-        dim = len(H36M_DIM_USED_XYZ)
+        dim = args.pose_dim
         if getattr(args, "model_type", "conv") == "mlp":
             model = build_mlp_mixer(args, dim, in_ntp, out_ntp, generator=gen)
         else:
@@ -173,36 +185,43 @@ def _combine_test_sets(test_sets: dict, device: torch.device):
 
 def model_from_checkpoint_meta(meta: dict) -> torch.nn.Module:
     """The model a checkpoint's stored training args (``train_state.pt``
-    meta) describe, for the port's trainers: H36M direct (ConvMixer, or
-    MlpMixer with ``model_type mlp``, 66 dims), autoregressive (``*_model``
-    window args) and AMASS (MlpMixer of ``pose_dim`` dims)."""
-    # the direct CLI stores model_type; the autoregressive one has none
-    # but stores its kernel shape; the AMASS one has neither
-    model_type = meta.get("model_type",
-                          "conv" if "conv1_kernel_shape" in meta else "mlp")
+    meta) describe, for every trainer family, as JAX
+    ``model_from_checkpoint_meta`` builds it: H36M direct (ConvMixer, or
+    MlpMixer with ``model_type mlp``) and autoregressive (``*_model`` window
+    args), 48 dims for an H36M angle run and ``pose_dim`` otherwise; AIS
+    direct and autoregressive (ConvMixer: their CLIs store ``kernel1_x``
+    and ``conv_nChan``, no ``model_type``); AMASS (MlpMixer)."""
+    args = SimpleNamespace(**meta)
     in_n = meta.get("input_n_model", meta.get("input_n", 10))
     out_n = meta.get("output_n_model", meta.get("output_n", 25))
-    args = SimpleNamespace(**meta)
+    if meta.get("loss_type") == "angle" and "actions_to_consider" in meta:
+        dim = len(H36M_DIM_USED_ANGLE)  # the H36M angle trainers' 48 dims
+    else:
+        dim = meta.get("pose_dim", 66)
+    model_type = meta.get("model_type")
+    if model_type is None:
+        conv_keys = ("conv1_kernel_shape", "conv_nChan", "kernel1_x")
+        model_type = "conv" if any(k in meta for k in conv_keys) else "mlp"
     if model_type == "mlp":
-        return build_mlp_mixer(args, meta.get("pose_dim", 66), in_n, out_n)
-    dim = len(H36M_DIM_USED_XYZ)
+        return build_mlp_mixer(args, dim, in_n, out_n)
     return build_conv_mixer(args, dim, dim, in_n, out_n)
 
 
 def _log_epoch(history: dict, logger: MetricLogger, epoch: int,
                train_loss: float, val_loss: float, m1s, m2s, ns,
-               action_names) -> float:
+               action_names, metric_names: tuple, m1_scale: float) -> float:
     """Record one epoch's losses and per-group test sums in ``history``
-    and the logger; returns the test metric's mean."""
-    per_action = {a: (m1s[i] / ns[i], m2s[i] / ns[i])
+    and the logger under ``metric_names``, the first metric times
+    ``m1_scale``; returns the test metric's mean."""
+    per_action = {a: (m1s[i] / ns[i] * m1_scale, m2s[i] / ns[i])
                   for i, a in enumerate(action_names)}
-    m1_avg = m1s.sum() / ns.sum()
+    m1_avg = m1s.sum() / ns.sum() * m1_scale
     m2_avg = m2s.sum() / ns.sum()
     history["train"].append(train_loss)
     history["val"].append(val_loss)
     history["test"].append(m1_avg)
     history["per_action"] = per_action
-    for name, value in zip(METRIC_NAMES, (m1_avg, m2_avg)):
+    for name, value in zip(metric_names, (m1_avg, m2_avg)):
         history["metrics"][name].append(value)
         logger.add_scalar(f"metrics/{name}", value, epoch)
     logger.add_scalar("loss/train", train_loss, epoch)
@@ -216,12 +235,15 @@ def _train_and_evaluate(
     dataset, frames, vald, vframes,
     test_frames, test_starts, test_gids, action_names, start_epoch: int = 0,
     *, test_kind: str = "h36m_xyz",
+    metric_names: tuple = METRIC_NAMES,
+    m1_scale: float = 1.0,
     teacher_forcing_epochs: Optional[int] = None,
     test_batch_size: Optional[int] = None,
     state_copy_path: Optional[str] = None,
 ):
-    """Epoch driver: train -> validate -> grouped per-action test (MPJPE and
-    AUC-PCK of ``test_kind``, in batches of ``test_batch_size``, by default
+    """Epoch driver: train -> validate -> grouped per-action test (the two
+    metrics of ``test_kind``, named ``metric_names``, the first times
+    ``m1_scale``; in batches of ``test_batch_size``, by default
     ``args.batch_size_test``) -> history, logged scalars, checkpoint (also
     to ``state_copy_path`` when given). ``teacher_forcing_epochs`` not None
     selects the autoregressive trainer: teacher forcing while ``epoch`` is
@@ -229,7 +251,7 @@ def _train_and_evaluate(
     epochs in chunks (``_train_and_evaluate_fused``)."""
     autoreg = teacher_forcing_epochs is not None
     history = {"train": [], "val": [], "test": [],
-               "metrics": {name: [] for name in METRIC_NAMES},
+               "metrics": {name: [] for name in metric_names},
                "train_s": [], "epoch_s": []}
     batch_size_test = test_batch_size or args.batch_size_test
 
@@ -248,7 +270,8 @@ def _train_and_evaluate(
             dataset=dataset, frames=frames, vald=vald, vframes=vframes,
             test_frames=test_frames, test_starts=test_starts,
             test_gids=test_gids, action_names=action_names,
-            test_kind=test_kind, batch_size_test=batch_size_test,
+            test_kind=test_kind, metric_names=metric_names,
+            m1_scale=m1_scale, batch_size_test=batch_size_test,
             start_epoch=start_epoch,
             teacher_forcing_epochs=teacher_forcing_epochs)
 
@@ -270,7 +293,8 @@ def _train_and_evaluate(
             test_frames, test_starts, test_gids, len(action_names),
             batch_size_test, test_kind)
         m1_avg = _log_epoch(history, logger, epoch, train_loss, val_loss,
-                            m1s, m2s, ns, action_names)
+                            m1s, m2s, ns, action_names, metric_names,
+                            m1_scale)
         save(epoch)
         epoch_s = time.perf_counter() - t0
         history["train_s"].append(train_s)
@@ -328,7 +352,9 @@ def _train_and_evaluate_fused(args, trainer: Trainer, logger: MetricLogger,
                               frames, vald, vframes, test_frames,
                               test_starts, test_gids, action_names,
                               test_kind: str, batch_size_test: int,
-                              start_epoch: int, teacher_forcing_epochs):
+                              start_epoch: int, teacher_forcing_epochs,
+                              metric_names: tuple = METRIC_NAMES,
+                              m1_scale: float = 1.0):
     """``_train_and_evaluate`` with ``--epochs_per_dispatch`` > 1: each chunk
     of ``_chunk_epochs`` runs as ``Trainer.run_epochs_fused``, and its one
     read gives the same per-epoch history, scalars and lines. The
@@ -358,7 +384,7 @@ def _train_and_evaluate_fused(args, trainer: Trainer, logger: MetricLogger,
             train_loss, val_loss = float(out["train"][i]), float(out["val"][i])
             m1_avg = _log_epoch(history, logger, epoch, train_loss, val_loss,
                                 out["m1"][i], out["m2"][i], out["n"][i],
-                                action_names)
+                                action_names, metric_names, m1_scale)
             history["train_s"].append(per_epoch_s)
             history["epoch_s"].append(per_epoch_s)
             logger.add_scalar("perf/train_seq_per_sec", seq_per_s, epoch)
@@ -380,15 +406,14 @@ def _train_and_evaluate_fused(args, trainer: Trainer, logger: MetricLogger,
 def run_h36m(args, model: Optional[ConvMixer] = None,
              model_name: Optional[str] = None, init_state_dict=None):
     """H36M direct training (train_mixer_h36m.py:47-279 + per-epoch tests)
-    on ``args.dev``. ``init_state_dict`` (reference layout) replaces the
-    seeded init, e.g. to start from the JAX package's init. Returns
-    (history, trainer)."""
-    if args.loss_type != "mpjpe":
-        raise NotImplementedError(
-            "--loss_type angle lands with the H36M angle slice (ROADMAP "
-            "queue A item 9)")
+    on ``args.dev``: xyz (66 dims, input /1000, MPJPE and AUC-PCK) or, with
+    ``--loss_type angle``, expmap angles (48 dims, input unscaled, L1
+    loss, euler validation, euler and joint-angle test).
+    ``init_state_dict`` (reference layout) replaces the seeded init, e.g.
+    to start from the JAX package's init. Returns (history, trainer)."""
     device = resolve_device(getattr(args, "dev", "cuda"))
-    dim_used = H36M_DIM_USED_XYZ
+    xyz = args.loss_type == "mpjpe"
+    dim_used = H36M_DIM_USED_XYZ if xyz else H36M_DIM_USED_ANGLE
     dataset, vald, test_sets = _h36m_splits(args, args.input_n, args.output_n)
     print(f">>> Training dataset length: {len(dataset)}")
     print(f">>> Validation dataset length: {len(vald)}")
@@ -400,7 +425,8 @@ def run_h36m(args, model: Optional[ConvMixer] = None,
     logger = MetricLogger(log_dir)
     trainer = Trainer(
         model, opt, loss_type=args.loss_type, dim_used=dim_used,
-        input_n=args.input_n, output_n=args.output_n, input_scale=1e-3,
+        input_n=args.input_n, output_n=args.output_n,
+        input_scale=1e-3 if xyz else 1.0,
         delta_x=getattr(args, "delta_x", False))
     print(f"total number of parameters of the network is: {param_count(model)}")
 
@@ -416,7 +442,9 @@ def run_h36m(args, model: Optional[ConvMixer] = None,
         history = _train_and_evaluate(
             args, trainer, logger, log_dir,
             dataset, dataset.frames_on(device), vald, vald.frames_on(device),
-            test_frames, test_starts, test_gids, action_names, start_epoch)
+            test_frames, test_starts, test_gids, action_names, start_epoch,
+            test_kind="h36m_xyz" if xyz else "h36m_angle",
+            metric_names=_h36m_metric_names(args.loss_type))
     finally:
         logger.close()
     return history, trainer
@@ -429,14 +457,13 @@ def run_h36m_autoregressive(args, model: Optional[ConvMixer] = None,
     ``args.dev``: the model sees (input_n_model -> output_n_model) windows
     and is rolled over (input_n_dataset + output_n_dataset) sequences in
     step_window strides; teacher forcing for the first
-    n_epochs_teacher_forcing epochs. ``init_state_dict`` (reference layout)
-    replaces the seeded init. Returns (history, trainer)."""
-    if args.loss_type != "mpjpe":
-        raise NotImplementedError(
-            "--loss_type angle lands with the H36M angle slice (ROADMAP "
-            "queue A item 9)")
+    n_epochs_teacher_forcing epochs. ``--loss_type angle`` trains on the 48
+    expmap dims with the L1 rollout loss and tests the euler and
+    joint-angle errors. ``init_state_dict`` (reference layout) replaces the
+    seeded init. Returns (history, trainer)."""
     device = resolve_device(getattr(args, "dev", "cuda"))
-    dim_used = H36M_DIM_USED_XYZ
+    dim_used = (H36M_DIM_USED_XYZ if args.loss_type == "mpjpe"
+                else H36M_DIM_USED_ANGLE)
     dataset, vald, test_sets = _h36m_splits(
         args, args.input_n_dataset, args.output_n_dataset)
     model, opt = _model_and_optimizer(
@@ -459,7 +486,95 @@ def run_h36m_autoregressive(args, model: Optional[ConvMixer] = None,
             args, trainer, logger, log_dir,
             dataset, dataset.frames_on(device), vald, vald.frames_on(device),
             test_frames, test_starts, test_gids, action_names,
-            test_kind="ar", teacher_forcing_epochs=args.n_epochs_teacher_forcing)
+            test_kind="ar", metric_names=_h36m_metric_names(args.loss_type),
+            teacher_forcing_epochs=args.n_epochs_teacher_forcing)
+    finally:
+        logger.close()
+    return history, trainer
+
+
+def _ais_splits(args, input_n: int, output_n: int):
+    """(train, validation, {action: test}) AIS corpora of (input_n +
+    output_n)-frame windows over the trainer's fixed action splits
+    (train_mixer_ais.py:84-111, 295-299)."""
+    def corpus(actions):
+        return AISDataset(
+            args.data_dir, input_n, output_n, args.skip_rate, actions=actions,
+            smoothing_alpha=getattr(args, "smoothing_alpha", 0.15),
+            canonicalize=getattr(args, "canonicalize", True))
+
+    return (corpus(AIS_TRAIN_ACTIONS), corpus(AIS_VAL_ACTIONS),
+            {a: corpus([a]) for a in AIS_TEST_ACTIONS})
+
+
+def run_ais(args, model: Optional[ConvMixer] = None,
+            model_name: Optional[str] = None, init_state_dict=None):
+    """AIS direct training (train_mixer_ais.py:47-292) on ``args.dev``: the
+    ConvMixer on the 33 used dims of 19 keypoints, data in meters (input
+    and loss unscaled), the 'simple' grouped test over the two test actions
+    with its MPJPE reported in mm (x1000, train_mixer_ais.py:386-388).
+    ``init_state_dict`` (reference layout) replaces the seeded init.
+    Returns (history, trainer)."""
+    device = resolve_device(getattr(args, "dev", "cuda"))
+    dataset, vald, test_sets = _ais_splits(args, args.input_n, args.output_n)
+    print(f">>> Training dataset length: {len(dataset)}")
+    print(f">>> Validation dataset length: {len(vald)}")
+    model, opt = _model_and_optimizer(
+        args, model, init_state_dict, device, args.input_n, args.output_n,
+        len(dataset))
+    log_dir = _log_dir(args, model_name or f"ais_3d_{args.output_n}frames_ckpt")
+    logger = MetricLogger(log_dir)
+    trainer = Trainer(
+        model, opt, loss_type=args.loss_type, dim_used=AIS_DIM_USED,
+        input_n=args.input_n, output_n=args.output_n, input_scale=1.0,
+        loss_scale=1.0)
+    print(f"total number of parameters of the network is: {param_count(model)}")
+    test_frames, test_starts, test_gids, action_names = _combine_test_sets(
+        test_sets, device)
+    try:
+        history = _train_and_evaluate(
+            args, trainer, logger, log_dir,
+            dataset, dataset.frames_on(device), vald, vald.frames_on(device),
+            test_frames, test_starts, test_gids, action_names,
+            test_kind="simple", m1_scale=1000.0)
+    finally:
+        logger.close()
+    return history, trainer
+
+
+def run_ais_autoregressive(args, model: Optional[ConvMixer] = None,
+                           model_name: Optional[str] = None,
+                           init_state_dict=None):
+    """AIS autoregressive training (train_autoreg_mixer_ais.py:63-203) on
+    ``args.dev``: the H36M autoregressive scheme on the 33 AIS dims, in
+    meters; the test metric is the rollout loss x1000 (mm) and the AUC-PCK
+    on raw meters (``auc_scale`` 1.0: the reference's /1000 is commented
+    out, :266-268, 298-300). ``init_state_dict`` (reference layout)
+    replaces the seeded init. Returns (history, trainer)."""
+    device = resolve_device(getattr(args, "dev", "cuda"))
+    dataset, vald, test_sets = _ais_splits(
+        args, args.input_n_dataset, args.output_n_dataset)
+    model, opt = _model_and_optimizer(
+        args, model, init_state_dict, device, args.input_n_model,
+        args.output_n_model, len(dataset))
+    log_dir = _log_dir(
+        args, model_name or f"ais_ar_{args.output_n_dataset}frames_ckpt")
+    logger = MetricLogger(log_dir)
+    trainer = AutoregressiveTrainer(
+        model, opt, loss_type="mpjpe", dim_used=AIS_DIM_USED,
+        input_n=args.input_n_dataset, output_n=args.output_n_dataset,
+        input_n_model=args.input_n_model, output_n_model=args.output_n_model,
+        step_window=args.step_window, auc_scale=1.0)
+    print(f"total number of parameters of the network is: {param_count(model)}")
+    test_frames, test_starts, test_gids, action_names = _combine_test_sets(
+        test_sets, device)
+    try:
+        history = _train_and_evaluate(
+            args, trainer, logger, log_dir,
+            dataset, dataset.frames_on(device), vald, vald.frames_on(device),
+            test_frames, test_starts, test_gids, action_names,
+            test_kind="ar", m1_scale=1000.0,
+            teacher_forcing_epochs=args.n_epochs_teacher_forcing)
     finally:
         logger.close()
     return history, trainer

@@ -7,14 +7,15 @@ same flag surface (h36m/train_autoreg_mixer_h36m.py:415-560). The model sees
 teacher forcing for the first n_epochs_teacher_forcing epochs. The
 two-stage parser's mpjpe defaults build the autoregressive ConvMixer
 (conv_nChan 8, dimPosEmb 192, (5,5) kernels, BatchNorm, 4 blocks, mish, no
-harmonics), which ``Predictor`` serves through kernel B3. ``--dev``
-defaults to ``cuda`` and raises without a card; ``--dev cpu`` runs on the
-CPU.
+harmonics), which ``Predictor`` serves through kernel B3; the angle
+defaults (48 dims, conv_nChan 60, dimPosEmb 60, 3 blocks, lr 1e-2) build a
+model outside B3's domain, served by the plain forward as in the JAX
+package. ``--dev`` defaults to ``cuda`` and raises without a card; ``--dev
+cpu`` runs on the CPU.
 
 ``--epochs_per_dispatch K`` runs K epochs with one host read (a chunk
 never straddles the teacher-forcing boundary) and checkpoints once a
-chunk. ``--loss_type angle`` raises NotImplementedError naming its ROADMAP
-item (A9).
+chunk.
 
 Usage: python -m motionmixerconv_tpu_torch.cli.train_autoreg_mixer_h36m \\
     --loss_type mpjpe --data_dir D --save_path S
@@ -100,17 +101,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     return stage2.parse_args(argv)
 
 
-def _refuse_unported(args) -> None:
-    todo = []
-    if args.loss_type == "angle":
-        todo.append("--loss_type angle (ROADMAP queue A item 9)")
-    if todo:
-        raise NotImplementedError("not ported yet: " + ", ".join(todo))
-
-
 def main(argv=None):
     args = parse_args(argv)
-    _refuse_unported(args)
     args.conv1_kernel_shape = (args.kernel1_x, args.kernel1_y)
     print(args)
     history, _ = run_h36m_autoregressive(

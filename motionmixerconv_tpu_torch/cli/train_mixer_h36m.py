@@ -6,15 +6,17 @@ parser whose per-loss defaults differ (mpjpe: hidden 50 / blocks 4 / lr
 1e-3; angle: hidden 60 / blocks 3 / lr 1e-2). ``--dev`` defaults to
 ``cuda`` and raises without a card; ``--dev cpu`` runs on the CPU.
 
-``--model_type mlp`` trains an MlpMixer on the 66 dims (``build_mlp_mixer``,
-as the JAX CLI does). ``--epochs_per_dispatch K`` runs K epochs with one
-host read and checkpoints once a chunk; on the card every step and
-evaluation batch replays a captured CUDA graph whatever K. Flags of later
-slices raise NotImplementedError naming their ROADMAP item: ``--loss_type
-angle`` (A9), ``--visualize`` (A16).
+The default ``--loss_type angle`` trains on the 48 expmap dims with the
+L1 loss and reports the euler and joint-angle errors; ``mpjpe`` trains on
+the 66 xyz dims. ``--model_type mlp`` trains an MlpMixer of ``--pose_dim``
+dims (``build_mlp_mixer``, as the JAX CLI does). ``--epochs_per_dispatch
+K`` runs K epochs with one host read and checkpoints once a chunk; on the
+card every step and evaluation batch replays a captured CUDA graph
+whatever K. ``--visualize`` raises NotImplementedError naming its ROADMAP
+item (A16).
 
 Usage: python -m motionmixerconv_tpu_torch.cli.train_mixer_h36m \\
-    --loss_type mpjpe --fused_encoder --data_dir D --save_path S
+    --fused_encoder --data_dir D --save_path S
 """
 
 from __future__ import annotations
@@ -114,13 +116,9 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 def _refuse_unported(args) -> None:
-    todo = []
-    if args.loss_type == "angle":
-        todo.append("--loss_type angle (ROADMAP queue A item 9)")
     if args.visualize:
-        todo.append("--visualize (ROADMAP queue A item 16)")
-    if todo:
-        raise NotImplementedError("not ported yet: " + ", ".join(todo))
+        raise NotImplementedError(
+            "not ported yet: --visualize (ROADMAP queue A item 16)")
 
 
 def main(argv=None):

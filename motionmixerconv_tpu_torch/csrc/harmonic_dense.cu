@@ -89,6 +89,17 @@ constexpr int kFinishThreads = 1024;
 constexpr int kDbCols = 32;        // db columns per finishing block
 constexpr int kDxRows = 16;        // rows per dx block, 4 per thread
 
+// launches of the forward (0) and dW (1) kernels since the library was
+// loaded, counted on the device by each launch's first thread: replays of a
+// captured CUDA graph run no wrapper, so only the device sees them
+__device__ unsigned long long launch_count[2];
+
+__device__ __forceinline__ void count_launch(int kernel) {
+  if (threadIdx.x == 0 && blockIdx.x == 0 && blockIdx.y == 0 &&
+      blockIdx.z == 0)
+    atomicAdd(&launch_count[kernel], 1ULL);
+}
+
 // (sin a, cos a) -> (sin 2a, cos 2a), normalized by s^2 + c^2. Every step
 // rounds to nearest with no contraction, as the plain torch version does.
 __device__ __forceinline__ void double_angle(float& s, float& c) {
@@ -245,6 +256,7 @@ harmonic_dense_fwd_kernel(const float* __restrict__ x,
                           const float* __restrict__ freqs,
                           float* __restrict__ dst, int R, int D, int E, int n,
                           int doubling, int hg, int cols) {
+  count_launch(0);
   extern __shared__ float4 smem4[];
   float* X = reinterpret_cast<float*>(smem4);  // (D, kFwdRows) inputs
   const int kk = 2 * D;
@@ -360,6 +372,7 @@ harmonic_dense_bwd_dw_kernel(const float* __restrict__ x,
                              const float* __restrict__ freqs,
                              float* __restrict__ part, int R, int D, int E,
                              int n, int doubling, int chunk_rows, int cols) {
+  count_launch(1);
   extern __shared__ float4 smem4[];
   const int kk = 2 * D;
   const int kgs = (kk + 3) / 4, kp = 4 * kgs;  // features padded to float4s
@@ -636,6 +649,13 @@ long mmc_harmonic_finish_smem_bytes(int E, int n) {
 
 long mmc_harmonic_dx_smem_bytes(int D, int E, int ld) {
   return (long)dx_smem_bytes(D, E, ld);
+}
+
+// the current device's launch counts of the forward and dW kernels into
+// out[0], out[1] (synchronous, on the legacy default stream). Returns the
+// cudaError_t (0 on success).
+int mmc_harmonic_device_launches(unsigned long long* out) {
+  return (int)cudaMemcpyFromSymbol(out, launch_count, sizeof(launch_count));
 }
 
 // blocks of the forward (kernel 0) or dW (kernel 1) kernel that fit one SM

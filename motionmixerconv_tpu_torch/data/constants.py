@@ -1,10 +1,10 @@
-"""Human3.6M and AMASS joint, dimension and split tables shared by the
+"""Human3.6M, AMASS and AIS joint, dimension and split tables shared by the
 datasets, the trainers and evaluation.
 
-The port's own copy of the H3.6M and AMASS parts of
+The port's own copy of the H3.6M, AMASS and AIS parts of
 ``motionmixerconv_tpu/data/constants.py`` (values transcribed from the
-reference, file:line cited per table). AIS and CMU tables land with their
-slices.
+reference, file:line cited per table). The CMU tables land with their
+slice.
 """
 
 from __future__ import annotations
@@ -83,3 +83,40 @@ AMASS_JOINT_USED = np.arange(4, 22)
 AMASS_TARGET_FPS = 25
 # their 54 coordinates in the flat (52 * 3) frame, the model's input
 AMASS_DIM_USED = np.arange(12, 66)
+
+
+# --- AIS ---------------------------------------------------------------------
+
+AIS_NUM_KPS_USED = 19  # dataset_ais_xyz.py:85
+AIS_ROOT_JOINT = 8  # MidHip (dataset_ais_xyz.py:118)
+AIS_NECK_JOINT = 1
+AIS_LHIP_JOINT = 12
+AIS_RHIP_JOINT = 9
+
+# trainer's ignored joints: Nose, MidHip, RHip, LHip, REye, LEye, REar, LEar
+# (train_mixer_ais.py:119-125)
+AIS_JOINTS_TO_IGNORE = np.array([1, 8, 9, 12, 15, 16, 17, 18])
+AIS_DIM_USED = np.setdiff1d(
+    np.arange(AIS_NUM_KPS_USED * 3), _expand_joint_dims(AIS_JOINTS_TO_IGNORE)
+)
+
+# action splits used by the AIS trainer (train_mixer_ais.py:84-111, 295-299)
+AIS_TRAIN_ACTIONS = [
+    "2021-08-04-singlePerson_000",
+    "2021-08-04-singlePerson_001",
+    "2021-08-04-singlePerson_003",
+    "2022-05-26_2persons_000",
+    "2022-05-26_2persons_003",
+]
+AIS_VAL_ACTIONS = ["2022-05-26_2persons_001"]
+AIS_TEST_ACTIONS = ["2021-08-04-singlePerson_002", "2022-05-26_2persons_002"]
+AIS_ALL_ACTIONS = [
+    "2021-08-04-singlePerson_000",
+    "2021-08-04-singlePerson_001",
+    "2021-08-04-singlePerson_002",
+    "2021-08-04-singlePerson_003",
+    "2022-05-26_2persons_000",
+    "2022-05-26_2persons_001",
+    "2022-05-26_2persons_002",
+    "2022-05-26_2persons_003",
+]

@@ -1,16 +1,17 @@
-"""Synthetic Human3.6M and AMASS corpora in the reference's exact on-disk
-formats.
+"""Synthetic Human3.6M, AMASS and AIS corpora in the reference's exact
+on-disk formats.
 
-The port's own copy of ``make_h36m_corpus`` and ``make_amass_corpus`` from
-``motionmixerconv_tpu/data/fixtures.py`` (numpy only, same random streams,
-so one seed writes the same files from either package). The real corpora
-are licensed and not redistributable; these make the CSV expmap and the
-SMPL npz pipelines testable end to end. The CMU and AIS generators land
-with their slices.
+The port's own copy of ``make_h36m_corpus``, ``make_amass_corpus`` and
+``make_ais_corpus`` from ``motionmixerconv_tpu/data/fixtures.py`` (numpy
+only, same random streams, so one seed writes the same files from either
+package). The real corpora are licensed and not redistributable; these
+make the CSV expmap, the SMPL npz and the keypoint JSON pipelines testable
+end to end. The CMU generator lands with its slice.
 """
 
 from __future__ import annotations
 
+import json
 import os
 
 import numpy as np
@@ -84,4 +85,43 @@ def make_amass_corpus(
                         poses=poses,
                         mocap_framerate=np.float64(frame_rate),
                     )
+    return data_dir
+
+
+def make_ais_corpus(
+    data_dir: str,
+    actions=("singlePerson_000", "singlePerson_001"),
+    n_frames: int = 200,
+    fail_frames=(),
+    seed: int = 0,
+) -> str:
+    """Write {action}.json files of per-frame keypoint records.
+
+    Format parity: dataset_ais_xyz.py:27-111 — each frame is
+    ``{"person": {"id": 0, "keypoints": [{"pos": [x,y,z], "score": s}, ...]}}``
+    with 27 keypoints, of which the first 19 are used. Frames listed in
+    ``fail_frames`` get one keypoint with score 0 (detection failure).
+    """
+    rng = np.random.RandomState(seed)
+    os.makedirs(data_dir, exist_ok=True)
+    for action in actions:
+        # skeleton around a hip at origin, wandering slowly; meters.
+        base = rng.randn(27, 3) * 0.3
+        base[8] = 0.0  # MidHip
+        base[1] = base[8] + np.array([0.0, 0.0, 0.5])  # Neck above hip
+        base[9] = base[8] + np.array([0.15, 0.0, 0.0])  # RHip
+        base[12] = base[8] + np.array([-0.15, 0.0, 0.0])  # LHip
+        drift = _smooth_walk(rng, n_frames, 3, 0.01)
+        jitter = _smooth_walk(rng, n_frames, 27 * 3, 0.003).reshape(
+            n_frames, 27, 3)
+        frames = []
+        for t in range(n_frames):
+            kps = []
+            for k in range(27):
+                pos = base[k] + drift[t] + jitter[t, k]
+                score = 0.0 if (t in fail_frames and k == 3) else 0.9
+                kps.append({"pos": [float(p) for p in pos], "score": score})
+            frames.append({"person": {"id": 0, "keypoints": kps}})
+        with open(os.path.join(data_dir, f"{action}.json"), "w") as f:
+            json.dump(frames, f)
     return data_dir

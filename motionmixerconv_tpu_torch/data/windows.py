@@ -78,8 +78,8 @@ class WindowedCorpus:
 def gather_windows(frames: torch.Tensor, starts: torch.Tensor,
                    seq_len: int) -> torch.Tensor:
     """Gather (B, seq_len, D) windows from an (N, D) corpus, on the corpus's
-    device. ``starts`` must be in range (``batch_starts`` pads with window
-    0); an index out of range raises."""
+    device. ``starts`` must be in range (``batch_starts`` pads with the
+    corpus's first window); an index out of range raises."""
     idx = starts[:, None] + torch.arange(seq_len, device=starts.device)
     return frames[idx]
 
@@ -94,9 +94,12 @@ def batch_starts(
     """Yield (starts, weight) batches covering every window exactly once.
 
     The last batch is padded up to ``batch_size`` by repeating window 0
-    with weight 0, so every step has one shape; ``weight`` is (B,) float32
-    in {0, 1}, and losses and metrics weighted by it equal the reference's
-    ragged-batch averages.
+    (``window_starts[0]``) with weight 0, so every step has one shape;
+    ``weight`` is (B,) float32 in {0, 1}, and losses and metrics weighted by
+    it equal the reference's ragged-batch averages. A padding row reads a
+    valid window, so it is finite wherever the windows are: NaN times 0 is
+    still NaN. (The JAX package pads with frame 0 of the corpus, the same
+    start wherever the first window starts there.)
     """
     order = np.arange(len(corpus))
     if shuffle:
@@ -108,6 +111,7 @@ def batch_starts(
         w = np.ones(len(chunk), dtype=np.float32)
         if len(chunk) < batch_size:
             pad = batch_size - len(chunk)
-            chunk = np.concatenate([chunk, np.zeros(pad, dtype=chunk.dtype)])
+            chunk = np.concatenate(
+                [chunk, np.full(pad, corpus.window_starts[0], chunk.dtype)])
             w = np.concatenate([w, np.zeros(pad, dtype=np.float32)])
         yield chunk.astype(np.int32), w

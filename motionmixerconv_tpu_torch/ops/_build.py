@@ -135,6 +135,8 @@ def _declare(lib) -> None:
     for name, n_args in (("fwd", 2), ("dw", 2), ("finish", 2), ("dx", 3)):
         getattr(lib, f"mmc_harmonic_{name}_smem_bytes").argtypes = [i] * n_args
         getattr(lib, f"mmc_harmonic_{name}_smem_bytes").restype = L
+    lib.mmc_harmonic_device_launches.argtypes = [p]
+    lib.mmc_harmonic_device_launches.restype = i
     lib.mmc_harmonic_resident_blocks.argtypes = [i, i, L]
     lib.mmc_harmonic_resident_blocks.restype = i
     lib.mmc_harmonic_dense_fwd.argtypes = [p] * 6 + [i] * 8 + [p]

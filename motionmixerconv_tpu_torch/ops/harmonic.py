@@ -22,6 +22,7 @@ in a fixed order (two launches give identical bits).
 
 from __future__ import annotations
 
+import ctypes
 import functools
 from dataclasses import dataclass
 from typing import Optional
@@ -57,6 +58,20 @@ SM_SMEM_BYTES = 233472  # shared memory of one H100 SM; each block also
 PLAN_BLOCKS_PER_SM = 2  # resident blocks a plan counts on, to hide latency
 FULL_WAVES = 0.9        # a plan within this share of the best wave
                         # efficiency is as good as the best
+
+
+def device_launches() -> tuple:
+    """(forward, dW) kernel launches the current CUDA device has run since
+    the library was loaded, as the kernels count them on the device:
+    replays of a captured CUDA graph included, which ``LAUNCHES`` and
+    ``LAUNCHES_BWD`` (counted where a wrapper launches) cannot see. Waits
+    for the device; callers read differences."""
+    lib = load_library()
+    out = (ctypes.c_ulonglong * 2)()
+    torch.cuda.synchronize()
+    check(lib, lib.mmc_harmonic_device_launches(ctypes.addressof(out)),
+          "harmonic kernels' device launch counts")
+    return int(out[0]), int(out[1])
 
 
 def _cdiv(a: int, b: int) -> int:

@@ -7,7 +7,10 @@ teacher forcing for the first ``n_epochs_teacher_forcing`` epochs
 loop (:153, :322). The reference feeds unscaled (mm) sequences in this path
 (``input_scale`` 1.0: there is no /1000 in ``autoregressive_process_batch``)
 and the test metric is the rollout loss in dim_used space plus AUC-PCK
-scaled by ``auc_scale`` (:322-338), not the full-skeleton MPJPE.
+scaled by ``auc_scale`` (:322-338), not the full-skeleton MPJPE. With
+``loss_type`` 'angle' the rollout loss is the L1 angle loss and the test
+takes the euler and joint-angle errors of the stitched prediction put into
+the full expmap frame (:360-412).
 
 BatchNorm, as the JAX trainer has it (autoreg_trainer.py:113-171): inside
 the rollout, train-mode BatchNorm normalises with batch statistics and its
@@ -19,8 +22,8 @@ forwards.
 Training and evaluation run the plain ``nn.Module`` forward with autograd;
 the fused kernels are inference only. On a CUDA device a step (teacher
 forcing or closed loop, one graph each) and an evaluation batch are
-captured CUDA graphs, replayed once per batch, as in ``Trainer``. The angle kinds (ROADMAP queue A
-item 9) and the mesh (item 17) raise, as in ``Trainer``.
+captured CUDA graphs, replayed once per batch, as in ``Trainer``. The mesh
+(ROADMAP queue A item 17) raises, as in ``Trainer``.
 """
 
 from __future__ import annotations
@@ -32,7 +35,9 @@ from torch import nn
 from ..data.windows import WindowedCorpus, gather_windows
 from ..models.common import frozen_running_stats
 from .autoregressive import autoregressive_rollout
-from .loop import PerSample, Trainer, _per_sample_auc_pck, _per_sample_mpjpe, _wmean
+from .loop import (PerSample, Trainer, _per_sample_auc_pck, _per_sample_euler,
+                   _per_sample_joint_angle, _per_sample_l1_angle,
+                   _per_sample_mpjpe, _wmean)
 from .optim import Optimizer
 
 
@@ -64,9 +69,10 @@ class AutoregressiveTrainer(Trainer):
                            for m in model.modules())
 
     def _sequence(self, frames: torch.Tensor, starts: torch.Tensor):
-        """The windows at ``starts`` in dim_used space, times input_scale."""
+        """The windows at ``starts`` in full-frame and in dim_used space,
+        times input_scale."""
         batch = gather_windows(frames, starts, self.seq_len)
-        return batch.index_select(2, self._dim_used) * self.input_scale
+        return batch, batch.index_select(2, self._dim_used) * self.input_scale
 
     def _rollout(self, seq: torch.Tensor, teacher_forcing: bool):
         return autoregressive_rollout(
@@ -74,7 +80,8 @@ class AutoregressiveTrainer(Trainer):
             input_n_model=self.input_n_model,
             output_n_model=self.output_n_model,
             step_window=self.step_window, teacher_forcing=teacher_forcing,
-            loss_per_sample=_per_sample_mpjpe)
+            loss_per_sample=(_per_sample_mpjpe if self.loss_type == "mpjpe"
+                             else _per_sample_l1_angle))
 
     # ------------------------------------------------------------ train step
 
@@ -86,7 +93,7 @@ class AutoregressiveTrainer(Trainer):
         so is ``frozen_running_stats``, a host attribute set at capture."""
         if teacher_forcing is None:
             raise ValueError("the autoregressive step needs teacher_forcing")
-        seq = self._sequence(frames, starts)
+        _, seq = self._sequence(frames, starts)
         if self._has_bn:
             # the once-per-step running-stats harvest, before the update
             with torch.no_grad():
@@ -128,16 +135,24 @@ class AutoregressiveTrainer(Trainer):
 
     def _ar_val_per_sample(self, frames, starts):
         """Per-sample closed-loop rollout loss (in both metric slots)."""
-        per, _ = self._rollout(self._sequence(frames, starts), False)
+        _, seq = self._sequence(frames, starts)
+        per, _ = self._rollout(seq, False)
         per = per * self.loss_scale
         return per, per
 
     def _ar_test_per_sample(self, frames, starts):
-        """Per-sample closed-loop rollout loss and AUC-PCK of the stitched
-        prediction, scaled by ``auc_scale`` (train_autoreg_mixer_h36m.py:
-        261-357)."""
-        seq = self._sequence(frames, starts)
+        """Per-sample closed-loop rollout test (train_autoreg_mixer_h36m.py:
+        261-357, :360-412). mpjpe: the rollout loss and the AUC-PCK of the
+        stitched prediction, scaled by ``auc_scale``; angle: the euler and
+        joint-angle errors of the stitched prediction put into the full
+        frame."""
+        batch, seq = self._sequence(frames, starts)
         per_loss, full_pred = self._rollout(seq, False)
+        if self.loss_type == "angle":
+            full_gt = batch[:, self.input_n:]
+            all_seq = self._in_full_frame(full_gt, full_pred)
+            return (_per_sample_euler(all_seq, full_gt),
+                    _per_sample_joint_angle(all_seq, full_gt))
         gt = seq[:, self.input_n:]
         b = gt.shape[0]
         per_metric = _per_sample_auc_pck(

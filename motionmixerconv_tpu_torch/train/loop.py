@@ -18,11 +18,14 @@ every step op by op, as the JAX package's does. ``run_epochs_fused`` runs
 K epochs of train, validation and grouped test and reads their results
 back once.
 
-Not ported in this slice, each raising NotImplementedError: the mesh
-(data-parallel) path and the angle loss with its euler evaluation.
+Both loss types are ported: 'mpjpe' (xyz) and 'angle' (L1 on the expmap
+dims, validated and tested by the euler error on the full frame, whose
+gimbal branches are masks, so the evaluation is device work a graph can
+replay). The mesh (data-parallel) path is a later slice and raises
+NotImplementedError.
 
 Reference call-stack parity: h36m/train_mixer_h36m.py:47-279 (train),
-:282-417 (test_mpjpe).
+:282-417 (test_mpjpe), :420-469 (test_angle).
 """
 
 from __future__ import annotations
@@ -36,18 +39,37 @@ from torch import nn
 
 from ..data.constants import H36M_INDEX_TO_EQUAL_EVAL, H36M_INDEX_TO_IGNORE_EVAL
 from ..data.windows import WindowedCorpus, batch_starts, gather_windows
+from ..geometry.rotations import expmap2rotmat, rotmat2euler
 from ..metrics.metrics import auc_pck_from_dist, delta_2_gt
 from .graphs import StepGraph
 from .optim import Optimizer
-
-ANGLE_TODO = ("the angle loss and its euler/joint-angle evaluation land with "
-              "the H36M angle slice (ROADMAP queue A item 9)")
 
 
 def _per_sample_mpjpe(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
     """(B, T, D) -> (B,): mean joint L2, D a multiple of 3."""
     b = pred.shape[0]
     return torch.linalg.norm((gt - pred).reshape(b, -1, 3), dim=-1).mean(-1)
+
+
+def _per_sample_l1_angle(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
+    """(B, T, D) -> (B,): mean over T of sum-abs over D (the angle train
+    loss)."""
+    return torch.abs(pred - gt).sum(dim=2).mean(dim=1)
+
+
+def _per_sample_euler(pred_ang: torch.Tensor, gt_ang: torch.Tensor
+                      ) -> torch.Tensor:
+    """(B, T, D) expmap -> (B,): mean over T of the D-dim euler-diff norm."""
+    b, t, d = pred_ang.shape
+    pe = rotmat2euler(expmap2rotmat(pred_ang.reshape(-1, 3))).reshape(b, t, d)
+    te = rotmat2euler(expmap2rotmat(gt_ang.reshape(-1, 3))).reshape(b, t, d)
+    return torch.linalg.norm(pe - te, dim=-1).mean(dim=-1)
+
+
+def _per_sample_joint_angle(pred: torch.Tensor, gt: torch.Tensor
+                            ) -> torch.Tensor:
+    """(B, T, D) -> (B,): mean over T of the D-dim angle-diff norm."""
+    return torch.linalg.norm(gt - pred, dim=-1).mean(dim=-1)
 
 
 def _per_sample_auc_pck(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
@@ -79,11 +101,12 @@ class Trainer:
             len(dim_used)); it lives on the training device.
         optimizer: ``train.optim.Optimizer`` over the model's parameters
             (None for a trainer that only evaluates).
-        loss_type: 'mpjpe' ('angle' is a later slice and raises).
+        loss_type: 'mpjpe' or 'angle' (L1 train loss, euler validation).
         dim_used: indices into the corpus feature axis fed to the model.
         input_n / output_n: window split.
         input_scale: multiplier on the model input (1/1000 for H36M xyz,
-            which is in mm; train_mixer_h36m.py:179).
+            which is in mm; 1.0 for angles, AIS and AMASS;
+            train_mixer_h36m.py:179).
         loss_scale: multiplier on the train loss.
         delta_x: velocity mode: the model consumes frame deltas and its
             predictions are decoded with a prefix sum.
@@ -100,8 +123,6 @@ class Trainer:
                 "slice (ROADMAP queue A item 17)")
         if loss_type not in ("mpjpe", "angle"):
             raise ValueError(f"unknown loss_type {loss_type}")
-        if loss_type == "angle":
-            raise NotImplementedError(ANGLE_TODO)
         self.model = model
         self.optimizer = optimizer
         self.loss_type = loss_type
@@ -152,7 +173,9 @@ class Trainer:
         model_in, seq_gt, last = self._prepare(
             gather_windows(frames, starts, self.seq_len))
         pred = self._predict(model_in, last)
-        return _wmean(_per_sample_mpjpe(pred, seq_gt), w) * self.loss_scale
+        per = (_per_sample_mpjpe if self.loss_type == "mpjpe"
+               else _per_sample_l1_angle)(pred, seq_gt)
+        return _wmean(per, w) * self.loss_scale
 
     def _step(self, frames: torch.Tensor, starts: torch.Tensor,
               w: torch.Tensor, teacher_forcing=None,
@@ -288,7 +311,9 @@ class Trainer:
         bs = max(1, min(batch_size, n))
         n_batches = (n + bs - 1) // bs
         pad = n_batches * bs - n
-        starts = np.concatenate([window_starts, np.zeros(pad, np.int64)])
+        # padding repeats the first window (as batch_starts does): finite
+        starts = np.concatenate([window_starts,
+                                 np.repeat(window_starts[:1], pad)])
         w = np.concatenate([np.ones(n, np.float32), np.zeros(pad, np.float32)])
         gids = np.concatenate([group_ids, np.zeros(pad, np.int64)])
         hit = self._eval_stacks[key] = (
@@ -332,11 +357,10 @@ class Trainer:
         return out[0], out[1], out[2]
 
     def _per_sample_for_kind(self, kind: str) -> PerSample:
-        if kind == "h36m_angle":
-            raise NotImplementedError(ANGLE_TODO)
         return {
             "val": self._val_per_sample,
             "h36m_xyz": self._test_h36m_xyz_per_sample,
+            "h36m_angle": self._test_h36m_angle_per_sample,
             "simple": self._test_simple_per_sample,
             "amass22": self._test_amass22_per_sample,
         }[kind]
@@ -346,10 +370,25 @@ class Trainer:
         model_in, seq_gt, last = self._prepare(batch)
         return batch, self._predict(model_in, last), seq_gt
 
+    def _in_full_frame(self, full_gt: torch.Tensor, pred: torch.Tensor
+                       ) -> torch.Tensor:
+        """The full-frame ground truth with the dim_used dims replaced by
+        ``pred``."""
+        out = full_gt.clone()
+        out[:, :, self._dim_used] = pred
+        return out
+
     def _val_per_sample(self, frames, starts):
-        """Per-sample validation loss (duplicated into both metric slots)."""
-        _, pred, seq_gt = self._forward_eval(frames, starts)
-        per = _per_sample_mpjpe(pred, seq_gt) * self.loss_scale
+        """Per-sample validation loss (duplicated into both metric slots):
+        MPJPE in dim_used space, or for angles the euler error of the
+        prediction put into the full frame (train_mixer_h36m.py:215-240)."""
+        batch, pred, seq_gt = self._forward_eval(frames, starts)
+        if self.loss_type == "mpjpe":
+            per = _per_sample_mpjpe(pred, seq_gt) * self.loss_scale
+        else:
+            full_gt = batch[:, self.input_n : self.input_n + self.output_n]
+            per = _per_sample_euler(self._in_full_frame(full_gt, pred),
+                                    full_gt)
         return per, per
 
     def h36m_xyz_outputs(self, frames, starts):
@@ -359,8 +398,7 @@ class Trainer:
         re-inserted from their equals (train_mixer_h36m.py:324-397)."""
         batch, pred, seq_gt = self._forward_eval(frames, starts)
         full_gt = batch[:, self.input_n : self.input_n + self.output_n]
-        all_seq = full_gt.clone()
-        all_seq[:, :, self._dim_used] = pred
+        all_seq = self._in_full_frame(full_gt, pred)
         all_seq[:, :, self._ignore] = all_seq[:, :, self._equal]
         all_gt = full_gt.clone()
         all_gt[:, :, self._ignore] = full_gt[:, :, self._equal]
@@ -380,6 +418,15 @@ class Trainer:
             seq_gt.reshape(b, self.output_n, -1, 3) / 1000.0)
         return per_mpjpe, per_auc
 
+    def _test_h36m_angle_per_sample(self, frames, starts):
+        """Euler and joint-angle errors per sample, the prediction put into
+        the full expmap frame (train_mixer_h36m.py:445-463)."""
+        batch, pred, _ = self._forward_eval(frames, starts)
+        full_gt = batch[:, self.input_n : self.input_n + self.output_n]
+        all_seq = self._in_full_frame(full_gt, pred)
+        return (_per_sample_euler(all_seq, full_gt),
+                _per_sample_joint_angle(all_seq, full_gt))
+
     def _test_simple_per_sample(self, frames, starts):
         """dim_used-space MPJPE + AUC-PCK per sample
         (train_mixer_ais.py:340-357)."""
@@ -397,9 +444,7 @@ class Trainer:
         the 22-joint ground truth (duplicated into both metric slots)."""
         batch, pred, _ = self._forward_eval(frames, starts)
         gt22 = batch[:, self.input_n: self.input_n + self.output_n, : 22 * 3]
-        all_seq = gt22.clone()
-        all_seq[:, :, self._dim_used] = pred
-        per = _per_sample_mpjpe(all_seq, gt22) * 1000.0
+        per = _per_sample_mpjpe(self._in_full_frame(gt22, pred), gt22) * 1000.0
         return per, per
 
     def validate(self, corpus: WindowedCorpus, frames: torch.Tensor,

@@ -199,14 +199,8 @@ def test_autoregressive_trainer_refuses_what_is_not_ported():
     model = ConvMixer(**AR_SMALL)
     opt = make_optimizer(model.parameters(), lr=1e-3)
     kw = dict(dim_used=H36M_DIM_USED_XYZ, **AR_GEOMETRY)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        AutoregressiveTrainer(model, opt, loss_type="angle", **kw)
     with pytest.raises(NotImplementedError, match="item 17"):
         AutoregressiveTrainer(model, opt, loss_type="mpjpe", mesh=object(), **kw)
-    trainer = AutoregressiveTrainer(model, opt, loss_type="mpjpe", **kw)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        trainer.evaluate_grouped(torch.zeros(40, 96), np.zeros(2, np.int64),
-                                 np.zeros(2, np.int64), 1, 2, "h36m_angle")
 
 
 # ------------------------------------------------- trainer and runner vs JAX
@@ -315,16 +309,6 @@ def test_cli_defaults_equal_the_jax_cli():
     assert got == want
     assert (got["conv_nChan"], got["hidden_dim"], got["regularization"],
             got["kernel1_x"], got["kernel1_y"]) == (8, 192, -1.0, 5, 5)
-
-
-@pytest.mark.parametrize("flags,item", [
-    (("--loss_type", "angle"), "item 9"),
-])
-def test_cli_refuses_unported_flags(tmp_path, flags, item):
-    argv = ["--data_dir", str(tmp_path), "--save_path", str(tmp_path),
-            "--dev", "cpu", *flags]
-    with pytest.raises(NotImplementedError, match=item):
-        cli.main(argv)
 
 
 def test_cli_defaults_to_the_card(h36m_dir, tmp_path):

@@ -55,3 +55,43 @@ def test_optimizer_state_crosses_cpu_and_card(card, tmp_path):
         got = [t.cpu() for t in _trajectory(fresh, q, 4)]
         for a, b in zip(got, want):
             torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.card
+def test_harmonic_kernels_count_their_launches_on_the_device(card):
+    """B1's forward and dW kernels count their own launches on the device
+    (``harmonic.device_launches``): the eager calls and every replay of a
+    captured CUDA graph, which runs no wrapper; the capture launches
+    nothing. The counts only grow, so the test reads differences."""
+    from motionmixerconv_tpu_torch.ops import harmonic
+
+    gen = torch.Generator().manual_seed(0)
+    x, g = (torch.randn(64, 6, generator=gen).to(card),
+            torch.randn(64, 8, generator=gen).to(card))
+    w = (torch.randn(8, 48, generator=gen) * 0.1).to(card)
+    bias = torch.zeros(8, device=card)
+    freqs = 0.1 * 2.0 ** torch.arange(4, dtype=torch.float32, device=card)
+
+    def step():
+        harmonic.harmonic_dense_fwd(x, w, bias, freqs)
+        harmonic.harmonic_dense_bwd(x, g, w, freqs, need_dx=False)
+
+    def since(before):
+        now = harmonic.device_launches()
+        return now[0] - before[0], now[1] - before[1]
+
+    start = harmonic.device_launches()
+    step()
+    assert since(start) == (1, 1)
+    side = torch.cuda.Stream(card)
+    side.wait_stream(torch.cuda.current_stream(card))
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream(card).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        step()
+    assert since(start) == (2, 2)
+    for _ in range(5):
+        graph.replay()
+    assert since(start) == (7, 7)

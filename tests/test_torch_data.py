@@ -109,22 +109,32 @@ def test_find_indices_bit_parity():
 
 @pytest.mark.parametrize("seed", [0, 3, 7])
 def test_batch_starts_and_gather_match_jax(seed):
-    """The same shuffle, the same weight-0 padding, and the same gathered
-    windows as the JAX package."""
+    """The same shuffle, the same weights and the same gathered windows as
+    the JAX package; a weight-0 padding row repeats window 0 (the corpus's
+    first window, as both packages' docstrings say), where the JAX package
+    reads frame 0, so the two agree wherever the first window starts at
+    frame 0 (seed 7 here) and the port's padding never reads a frame that
+    no window reads."""
     rs = np.random.RandomState(seed)
     frames = rs.randn(300, 6).astype(np.float32)
     corpus = WindowedCorpus(frames, np.sort(rs.choice(280, 53, replace=False)), 20)
     ours = list(batch_starts(corpus, 16, shuffle=True, seed=seed))
     theirs = list(jax_batch_starts(corpus, 16, shuffle=True, seed=seed))
     assert len(ours) == len(theirs) == 4
+    first = int(corpus.window_starts[0])
+    assert (first == 0) == (seed == 7)
     ft = _t(frames)
     for (s, w), (js, jw) in zip(ours, theirs):
-        np.testing.assert_array_equal(s, js)
         np.testing.assert_array_equal(w, jw)
+        real = w > 0
+        np.testing.assert_array_equal(s[real], js[real])
+        np.testing.assert_array_equal(js[~real], 0)
+        np.testing.assert_array_equal(s[~real], first)
         np.testing.assert_array_equal(
             gather_windows(ft, torch.from_numpy(s).long(), 20).numpy(),
             np.asarray(jax_gather(jnp.asarray(frames), jnp.asarray(s), 20)))
     assert sum(float(w.sum()) for _, w in ours) == 53
+    assert sum(int((w == 0).sum()) for _, w in ours) == 4 * 16 - 53
 
 
 def test_constants_match_jax():

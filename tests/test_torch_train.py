@@ -181,13 +181,6 @@ def test_trainer_refuses_what_is_not_ported():
     kw = dict(dim_used=np.arange(66), input_n=10, output_n=25)
     with pytest.raises(NotImplementedError, match="item 17"):
         Trainer(model, opt, loss_type="mpjpe", mesh=object(), **kw)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        Trainer(model, opt, loss_type="angle", **kw)
-    trainer = Trainer(model, opt, loss_type="mpjpe", **kw)
-    frames = torch.zeros(40, 96)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        trainer.evaluate_grouped(frames, np.zeros(2, np.int64),
-                                 np.zeros(2, np.int64), 1, 2, "h36m_angle")
 
 
 def test_train_epoch_pads_and_weights_the_last_batch():
@@ -300,7 +293,6 @@ def test_cli_defaults_to_the_card(h36m_dir, tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (("--loss_type", "angle"), "item 9"),
     (("--visualize",), "item 16"),
 ])
 def test_cli_refuses_unported_flags(tmp_path, flags, item):

@@ -66,8 +66,23 @@ failed detections (frame 0 among them), each checkpoint served through B2
 (launch counts reset just before each CLI of 18-20 and read just after its
 serving), then the
 angle and AIS train steps' times and the angle graph held to its eager
-steps. Then one JSON line with every kernel's numbers, the card's name and
-power limit, and the result line. Any failure exits non-zero; with
+steps, [21] checkpoint interchange with the JAX package: the committed
+JAX checkpoint (no meta; its MlpMixer from its array shapes) served through
+B4, phase 9's trained flagship written by the port as a JAX ``.ckpt``, read
+back bit-identical to its ``train_state.pt`` (weights and Adam state),
+served through B2 and the bulk path (B1-fwd) bit-identical to the ``.pt``
+route, and evaluated by ``cli.test_mixer_h36m`` as the ``.pt`` is, [22]
+``sweep.conv_study`` at its default widths (one epoch on a fifth of the H36M
+windows; one grid trial at ``--n_jobs 1``, two at ``--n_jobs 2`` with
+``--pruner median``, each trial mpjpe then angle), every trial's state read
+from ``results.db``, ``optuna_export``, the best trial served through B3,
+and B3 at all 24 kernel shapes of the study's grid against its plain
+version, twice for bit-identity, [23] ``sweep.mlp_study`` (TPE, seed 0, 2
+trials) with its best trial through B4 and ``sweep.autoreg_study`` (one AIS
+grid trial, a teacher-forcing and a closed-loop epoch) through B3 (launch
+counts reset just before each of 21-23's paths and read just after its
+serving). Then the whole run's seconds, one JSON line with every kernel's
+numbers, the card's name and power limit, and the result line. Any failure exits non-zero; with
 no CUDA device, or with the port's package missing beside this script, it
 exits at once and prints no result.
 """
@@ -77,6 +92,7 @@ from __future__ import annotations
 import contextlib
 import json
 import shutil
+import sqlite3
 import statistics
 import subprocess
 import sys
@@ -168,6 +184,19 @@ AIS_FAIL_FRAMES = (0,) + tuple(range(120, AIS_FRAMES, 194))
 AIS_ARGV = ["--n_epochs", "2"]
 AIS_AR_ARGV = ["--n_epochs", "2", "--n_epochs_teacher_forcing", "1"]
 B4_ANGLE_BATCHES = (1, 32, 128)
+# phases 21-23: checkpoint interchange and the studies. The committed JAX
+# checkpoint (a 2-block AMASS MlpMixer, no meta) and the batches B4 serves
+# it at; the studies at their default widths, cut to one epoch (two for the
+# autoregressive study: teacher forcing, then closed loop), a fifth of the
+# H36M windows and a fifth of the AIS ones; conv_study's grid of kernel
+# shapes (conv_optuna_main.py:337-348)
+ANCHOR = str(ROOT / "checkpoints" / "amass_3d_25frames_ckpt")
+ANCHOR_BATCHES = (1, 32, 128)
+STUDY_ARGV = ["--n_epochs", "1", "--skip_rate", "5"]
+MLP_STUDY_ARGV = ["--n_trials", "2", "--n_epochs", "1", "--skip_rate", "5"]
+AR_STUDY_ARGV = ["--dataset_type", "ais", "--n_trials", "1", "--n_epochs",
+                 "2", "--n_epochs_teacher_forcing", "1", "--skip_rate", "5"]
+STUDY_GRID = tuple((kh, kw) for kh in (1, 5, 9) for kw in range(1, 30, 4))
 DEVICE = "cuda:0"  # the one card the script needs
 # H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores, HBM3
 PEAK_F32_FLOPS = 67e12
@@ -1104,6 +1133,37 @@ def check_b4(torch, tag, fused, model, x, batches) -> dict:
     return out
 
 
+def b4_against_float64(torch, fused, x, batches) -> dict:
+    """B4 and its plain version for ``fused`` on the first B rows of ``x``,
+    each against the plain version evaluated in float64 on the same packed
+    weights, relative to max(1, max|ref|) (a trained checkpoint's outputs
+    reach the hundreds, where float32 rounding alone exceeds an absolute
+    1e-4); B4_REPEATS launches of each case bit-identical. Fails on any
+    case; returns {B: (kernel err, plain err, max|ref|)}."""
+    from motionmixerconv_tpu_torch.ops import mlp_mixer
+
+    spec, wts = fused.spec, fused.weights
+    out = {}
+    with torch.no_grad():
+        for b in batches:
+            xb = x[:b].contiguous()
+            got = mlp_mixer.mlp_mixer_fused(xb, wts, spec)
+            differ = sum(not torch.equal(got, mlp_mixer.mlp_mixer_fused(
+                xb, wts, spec)) for _ in range(B4_REPEATS - 1))
+            plain = mlp_mixer.mlp_mixer_plain(xb, wts, spec)
+            ref = mlp_mixer.mlp_mixer_plain(xb.double(), wts.double(), spec)
+            torch.cuda.synchronize()
+            scale = max(1.0, float(ref.abs().max()))
+            out[b] = (float((got.double() - ref).abs().max()) / scale,
+                      float((plain.double() - ref).abs().max()) / scale,
+                      float(ref.abs().max()))
+            if not torch.isfinite(got).all() or differ \
+                    or not out[b][0] <= TOL_B4:
+                fail(f"B4 B={b}: {out[b]} against float64 (tol {TOL_B4:g})"
+                     f", or {differ} of {B4_REPEATS - 1} launches differ")
+    return out
+
+
 def b4_times(torch, fused, x, n_model, batches) -> dict:
     """B4's times for ``fused`` at each B of ``batches``: per call from
     Python and the plain version's by CUDA events, the device's (calls
@@ -1570,7 +1630,455 @@ def angle_and_ais_paths(torch, np, dev, card, work, data_dir,
     return out
 
 
+def anchor_model(variables):
+    """The committed JAX checkpoint's MlpMixer, which stores no meta: its
+    widths from its array shapes, the rest at the AMASS test CLI's
+    defaults."""
+    from motionmixerconv_tpu_torch.cli import test_mixer_amass
+    from motionmixerconv_tpu_torch.models import MlpMixer
+
+    p = variables["params"]
+    d, hidden = p["conv"]["kernel"].shape
+    t, tokens = p["Mixer_Block_0"]["mlp_block_token_mixing"]["fc1"]["kernel"].shape
+    channels = p["Mixer_Block_0"]["mlp_block_channel_mixing"]["fc1"]["kernel"].shape[1]
+    defaults = test_mixer_amass.parse_args(["--model_path", ANCHOR])
+    return MlpMixer(
+        num_classes=d, num_blocks=sum(k.startswith("Mixer_Block_") for k in p),
+        hidden_dim=hidden, tokens_mlp_dim=tokens, channels_mlp_dim=channels,
+        seq_len=t, pred_len=p["conv_out"]["kernel"].shape[1],
+        activation=defaults.activation, regularization=defaults.regularization,
+        input_size=d, r_se=defaults.r_se, use_se=True)
+
+
+def fused_vs_model(torch, pred, x, batches) -> dict:
+    """{B: max abs error} of ``pred.predict`` (its fused kernel) against
+    its model's plain forward on the first B rows of ``x``."""
+    errs = {}
+    with torch.no_grad():
+        for b in batches:
+            xb = x[:b].to(pred.device)
+            errs[b] = float((pred.predict(xb) - pred.model(xb)).abs().max())
+    torch.cuda.synchronize()
+    return errs
+
+
+def checkpoint_interchange(torch, np, dev, card, work, data_dir, counters,
+                           steps_per_epoch: int) -> dict:
+    """Phase 21: the committed JAX checkpoint served through B4; phase 9's
+    trained flagship written by the port as a JAX .ckpt, read back
+    bit-identical, served through B2 and the bulk path (B1-fwd)
+    bit-identical to its train_state.pt, and evaluated by
+    cli.test_mixer_h36m as the train_state.pt is (launch counts reset just
+    before and read just after). Returns the kernels line's numbers."""
+    from motionmixerconv_tpu_torch.cli import _runner, test_mixer_h36m
+    from motionmixerconv_tpu_torch.ops import mlp_mixer
+    from motionmixerconv_tpu_torch.serving import Predictor
+    from motionmixerconv_tpu_torch.train import make_optimizer
+    from motionmixerconv_tpu_torch.train.state import (read_jax_checkpoint,
+                                                       restore_checkpoint,
+                                                       save_jax_checkpoint)
+
+    for c in counters.values():
+        c.reset()
+    t0 = time.perf_counter()
+    anchor = read_jax_checkpoint(ANCHOR)
+    if anchor.meta is not None:
+        fail(f"{ANCHOR}: expected no meta, found {sorted(anchor.meta)}")
+    served = Predictor.from_checkpoint(
+        None, ANCHOR, device=dev,
+        model_factory=lambda: anchor_model(anchor.variables))
+    if not isinstance(served._fused, mlp_mixer.FusedMlpMixer):
+        fail(f"the JAX checkpoint is not served by B4: "
+             f"{served.fused_fallback_reason}")
+    gen = torch.Generator().manual_seed(SEED + 21)
+    spec = served._fused.spec
+    x_anchor = torch.randn(128, spec.T, spec.D, generator=gen) * 0.5
+    anchor_errs = fused_vs_model(torch, served, x_anchor, ANCHOR_BATCHES)
+
+    # phase 9's flagship, its train_state.pt written again as a JAX .ckpt
+    state_pt = work / "runs_0" / "h36_3d_25frames_ckpt" / _runner.STATE_FILE
+    payload = torch.load(state_pt, map_location="cpu", weights_only=True)
+    meta = payload["meta"]
+
+    def model_and_optimizer():
+        model = _runner.model_from_checkpoint_meta(meta)
+        opt = make_optimizer(
+            model.parameters(), lr=meta["lr"],
+            use_scheduler=meta["use_scheduler"], milestones=meta["milestones"],
+            gamma=meta["gamma"], steps_per_epoch=steps_per_epoch,
+            clip_grad=meta["clip_grad"])
+        return model, opt
+
+    model, opt = model_and_optimizer()
+    model.load_state_dict(payload["model"], strict=True)
+    opt.load_state_dict(payload["optimizer"])
+    ckpt = work / "flagship.ckpt"
+    save_jax_checkpoint(str(ckpt), model, opt, payload["epoch"], meta=meta,
+                        seed=meta.get("seed", 0))
+    back = read_jax_checkpoint(str(ckpt))
+    sd = back.state_dict()
+    want_keys = set(payload["model"]) - {"encoder.frequencies"}
+    if set(sd) != want_keys or back.meta != meta \
+            or back.epoch != payload["epoch"]:
+        fail(f"{ckpt}: keys, meta or epoch differ from {state_pt}")
+    differ = [k for k in sd if not torch.equal(sd[k], payload["model"][k])]
+    clone, opt2 = model_and_optimizer()
+    restore_checkpoint(str(ckpt), clone, opt2)
+    differ += [f"adam {k}" for p, q in zip(opt.params, opt2.params)
+               for k in ("exp_avg", "exp_avg_sq", "step")
+               if not torch.equal(opt.adam.state[p][k].cpu(),
+                                  opt2.adam.state[q][k].cpu())]
+    if differ or (opt2.steps, opt2.lr) != (opt.steps, opt.lr):
+        fail(f"{ckpt} read back differs from {state_pt}: {differ[:5]}, "
+             f"steps/lr {(opt2.steps, opt2.lr)} vs {(opt.steps, opt.lr)}")
+
+    served_pt = Predictor.from_checkpoint(None, str(state_pt), device=dev)
+    served_ck = Predictor.from_checkpoint(None, str(ckpt), device=dev)
+    x = torch.randn(BULK_ROWS, 10, 66, generator=gen) * 0.5
+    same, errs = {}, {}
+    plain = _runner.model_from_checkpoint_meta({**meta, "fused_encoder": False})
+    plain.load_state_dict(payload["model"], strict=True)
+    plain = plain.to(dev).eval()
+    with torch.no_grad():
+        for b in (1, 32, BULK_ROWS):
+            got = served_ck.predict(x[:b])
+            same[b] = torch.equal(got, served_pt.predict(x[:b]))
+            errs[b] = served_err(torch, got, plain(x[:b].to(dev)))
+    torch.cuda.synchronize()
+    cli = {}
+    for tag, path in (("ckpt", ckpt), ("pt", state_pt)):
+        cli[tag] = test_mixer_h36m.main(
+            ["--data_dir", str(data_dir), "--model_path", str(path),
+             "--actions_to_consider", "walking"])
+    launches = {k: c.value for k, c in counters.items()}
+    seconds = time.perf_counter() - t0
+    # timed after the path's counts are read: these launches are not its
+    anchor_t = b4_times(torch, served._fused, x_anchor.to(dev),
+                        model_floats(served.model), ANCHOR_BATCHES)
+    cli_rel = max(abs(a - b) / abs(b) for a, b in zip(cli["ckpt"], cli["pt"]))
+    say(f"[21 checkpoint interchange] {card} | committed JAX checkpoint "
+        f"(no meta; the MlpMixer of its shapes: hidden "
+        f"{served.model.hidden_dim}, {served.model.num_blocks} blocks) "
+        f"through B4 vs the plain forward: " + " ; ".join(
+            f"B={b} {e:.3e}" for b, e in anchor_errs.items())
+        + f" (tol {TOL_B4:g}); B4 ms per call/device/plain (bound ms, by; "
+        f"profiler device us/launch): {fmt_b4_times('jax_ckpt', anchor_t)}"
+        f" | phase 9's flagship written as {ckpt.name}: "
+        f"{len(sd)} tensors bit-identical to train_state.pt, Adam moments and"
+        f" count ({opt2.steps} steps, lr {opt2.lr:g}) restored bit-identical"
+        f" | served from the .ckpt: bit-identical to the .pt route "
+        + ", ".join(f"b={b} {v}" for b, v in same.items())
+        + " (B2 at b <= 128, the bulk forward with B1-fwd at b = "
+        f"{BULK_ROWS}); vs the plain encoder's forward max abs err / max(1, "
+        "max|out|) " + ", ".join(f"b={b} {e:.3e}" for b, e in errs.items())
+        + f" (tol {TOL_E2E:g}) | cli.test_mixer_h36m walking: .ckpt "
+        f"{cli['ckpt']}, train_state.pt {cli['pt']} (max rel {cli_rel:.3e}) "
+        f"| launches on the path {launches} | {seconds:.1f} s")
+    if not all(e <= TOL_B4 for e in anchor_errs.values()):
+        fail(f"the JAX checkpoint served through B4: {anchor_errs}")
+    if not all(same.values()) or not all(e <= TOL_E2E for e in errs.values()):
+        fail(f"the .ckpt served unlike the .pt: {same}, {errs}")
+    if cli_rel != 0.0:
+        fail(f"cli.test_mixer_h36m: .ckpt {cli['ckpt']} vs .pt {cli['pt']}")
+    for k in ("mlp_mixer_fused", "conv_mixer_fused", "harmonic_dense_fwd"):
+        if launches[k] < 1:
+            fail(f"{k} was not launched on the checkpoint interchange path")
+    return {"launches": launches, "anchor_err": max(anchor_errs.values()),
+            "b4_times": anchor_t, "seconds": seconds}
+
+
+class TimedObjective:
+    """Wraps a study module's ``Objective`` to record each trial's
+    wall-clock seconds in ``times`` under (tag, trial number)."""
+
+    def __init__(self, module, times: dict, tag: str):
+        self.module, self.times, self.tag = module, times, tag
+
+    def __enter__(self):
+        base = self.orig = self.module.Objective
+        times, tag = self.times, self.tag
+
+        class Timed(base):
+            def __call__(self, trial):
+                t0 = time.perf_counter()
+                try:
+                    return super().__call__(trial)
+                finally:
+                    times[(tag, trial.number)] = time.perf_counter() - t0
+
+        self.module.Objective = Timed
+        return self
+
+    def __exit__(self, *exc):
+        self.module.Objective = self.orig
+
+
+def study_trials(study_dir) -> tuple:
+    """A study's results.db read by the port's Study: (the study, the
+    (number, state, values) of every trial)."""
+    from motionmixerconv_tpu_torch.sweep.engine import Study
+
+    study = Study(study_dir.name, storage=f"sqlite:///{study_dir}/results.db")
+    return study, [(t.number, t.state, t.values) for t in study.trials]
+
+
+def check_trials(tag, rows, n) -> None:
+    if len(rows) != n or any(s not in ("COMPLETE", "PRUNED") for _, s, _ in rows):
+        fail(f"{tag}: expected {n} trials, each COMPLETE or PRUNED: {rows}")
+
+
+def state_of(trial_dir, run: str):
+    """The train_state.pt of a trial's run named by the glob ``run``."""
+    found = sorted(trial_dir.glob(f"{run}/train_state.pt"))
+    if len(found) != 1:
+        fail(f"expected one {run}/train_state.pt under {trial_dir}: {found}")
+    return found[0]
+
+
+def b3_grid(torch, dev) -> dict:
+    """B3 with random weights at every kernel shape of conv_study's grid
+    (conv_nChan 8, dimPosEmb 192, 6 blocks), B = 1 and 128, against its
+    plain version and a second launch bit-identical: {(kh, kw): max abs
+    err}."""
+    from motionmixerconv_tpu_torch.models import ConvMixer
+    from motionmixerconv_tpu_torch.ops import conv_mixer, conv_mixer_mc
+
+    gen = torch.Generator().manual_seed(SEED + 22)
+    x = (torch.randn(128, 10, 66, generator=gen) * 0.5).to(dev)
+    errs = {}
+    with torch.no_grad():
+        for k in STUDY_GRID:
+            model = ConvMixer(**dict(STUDY, conv1_kernel_shape=k),
+                              generator=gen).eval().to(dev)
+            fused = conv_mixer.make_fused_conv_mixer(model)
+            if not isinstance(fused, conv_mixer_mc.FusedConvMixerMC):
+                fail(f"B3 grid {k}: the factory returned "
+                     f"{type(fused).__name__}")
+            y_all = fused.encoder(x).permute(0, 3, 1, 2).contiguous()
+            err = 0.0
+            for b in (1, 128):
+                y = y_all[:b].contiguous()
+                got = conv_mixer_mc.conv_mixer_mc_fused(y, fused.weights,
+                                                        fused.spec)
+                again = conv_mixer_mc.conv_mixer_mc_fused(y, fused.weights,
+                                                          fused.spec)
+                want = conv_mixer_mc.conv_mixer_mc_plain(y, fused.weights,
+                                                         fused.spec)
+                torch.cuda.synchronize()
+                if not torch.isfinite(got).all() or not torch.equal(got, again):
+                    fail(f"B3 grid {k} B={b}: non-finite or a second launch "
+                         "differs")
+                err = max(err, float((got - want).abs().max()))
+            errs[k] = err
+    return errs
+
+
+def study_paths(torch, np, dev, card, work, data_dir, counters) -> dict:
+    """Phases 22-23: conv_study at its default widths on the card (one
+    grid trial at --n_jobs 1, then two at --n_jobs 2 with the median
+    pruner), its best trial served through B3, B3 at every kernel shape of
+    its grid; mlp_study (TPE, 2 trials) served through B4; autoreg_study
+    (1 AIS grid trial) served through B3. Launch counts reset just before
+    each study and read just after its serving. Returns the kernels line's
+    numbers."""
+    from types import SimpleNamespace
+
+    from motionmixerconv_tpu_torch.cli._runner import model_from_checkpoint_meta
+    from motionmixerconv_tpu_torch.data import AISDataset, H36MDataset
+    from motionmixerconv_tpu_torch.data.constants import (AIS_DIM_USED,
+                                                          AIS_TEST_ACTIONS,
+                                                          H36M_DIM_USED_XYZ)
+    from motionmixerconv_tpu_torch.ops import conv_mixer_mc, mlp_mixer
+    from motionmixerconv_tpu_torch.serving import Predictor
+    from motionmixerconv_tpu_torch.sweep import (autoreg_study, conv_study,
+                                                 mlp_study, optuna_export)
+
+    def reset():
+        for c in counters.values():
+            c.reset()
+
+    def read():
+        torch.cuda.synchronize()
+        return {k: c.value for k, c in counters.items()}
+
+    def serve_trial(state, build, kernel_cls, x, batches):
+        """A trial's train_state.pt (its meta rebuilt by ``build``) through
+        its fused kernel on the first B windows of ``x`` (test windows, as
+        the trainer scales them), against its plain forward: ({B: (max abs
+        error / max(1, max|out|), max|out|)}, the Predictor)."""
+        payload = torch.load(state, map_location="cpu", weights_only=True)
+        model = build(SimpleNamespace(**payload["meta"]))
+        pred = Predictor(model, payload["model"], device=dev)
+        if not isinstance(pred._fused, kernel_cls):
+            fail(f"{state}: served by {type(pred._fused).__name__}, not "
+                 f"{kernel_cls.__name__}: {pred.fused_fallback_reason}")
+        errs = {}
+        with torch.no_grad():
+            for b in batches:
+                xb = x[:b].to(dev)
+                want = pred.model(xb)
+                errs[b] = (served_err(torch, pred.predict(xb), want),
+                           float(want.abs().max()))
+        if not all(e <= TOL_E2E for e, _ in errs.values()):
+            fail(f"{state} through {kernel_cls.__name__}: {errs} (tol "
+                 f"{TOL_E2E:g} of max(1, max|out|))")
+        return errs, pred
+
+    def fmt_served(errs):
+        return ", ".join(f"B={b} {e:.3e} (max|out| {m:.3g})"
+                         for b, (e, m) in errs.items())
+
+    # test windows as the trainers feed them: H36M xyz in meters (the
+    # mpjpe trainer's input scale 1e-3), AIS keypoints in meters
+    h36m_test = H36MDataset(str(data_dir), 10, 10, 1, actions=["walking"],
+                            split=2)
+    x_h36m = torch.as_tensor(np.stack([h36m_test[i] for i in range(128)])
+                             )[:, :10, H36M_DIM_USED_XYZ] * 1e-3
+    ais_test = AISDataset(str(work / "ais"), 10, 25, 2, AIS_TEST_ACTIONS,
+                          0.15)
+    x_ais = torch.as_tensor(np.stack(
+        [ais_test[int(i)] for i in np.linspace(0, len(ais_test) - 1, 128)]
+    ))[:, :10, AIS_DIM_USED]
+
+    out, times = {}, {}
+    # [22] conv_study
+    study_dir = work / "conv_study"
+    shutil.rmtree(study_dir, ignore_errors=True)
+    argv = [*STUDY_ARGV, "--data_dir", str(data_dir), "--study_dir",
+            str(study_dir)]
+    reset()
+    walls = {}
+    with TimedObjective(conv_study, times, "conv"):
+        for n_jobs, extra in ((1, ["--n_trials", "1"]),
+                              (2, ["--n_trials", "2", "--pruner", "median"])):
+            t0 = time.perf_counter()
+            conv_study.main([*argv, *extra, "--n_jobs", str(n_jobs)])
+            walls[n_jobs] = time.perf_counter() - t0
+    study, rows = study_trials(study_dir)
+    check_trials("conv_study", rows, 3)
+    exported = work / "conv_study_optuna.db"
+    exported.unlink(missing_ok=True)
+    optuna_export.export_optuna_sqlite(str(study_dir / "results.db"),
+                                       str(exported))
+    with contextlib.closing(sqlite3.connect(exported)) as conn:
+        n_exported = conn.execute("SELECT COUNT(*) FROM trials").fetchone()[0]
+    if n_exported != 3:
+        fail(f"optuna_export wrote {n_exported} trials, not 3")
+    best = study.best_trial
+    conv_errs, _ = serve_trial(
+        state_of(study_dir / f"trial{best.number}", "h36m_mpjpe_*"),
+        lambda a: conv_study._build_model(a, 66, a.input_n, a.output_n),
+        conv_mixer_mc.FusedConvMixerMC, x_h36m, (1, 128))
+    conv_launches = read()
+    # the n_jobs 2 call's grid points again, one after the other in a study
+    # of their own: the reference for its wall clock
+    seq_dir = work / "conv_study_seq"
+    shutil.rmtree(seq_dir, ignore_errors=True)
+    with TimedObjective(conv_study, times, "seq"):
+        conv_study.main([*STUDY_ARGV, "--data_dir", str(data_dir),
+                         "--study_dir", str(seq_dir), "--n_trials", "3",
+                         "--n_jobs", "1"])
+    check_trials("conv_study, sequential reference", study_trials(seq_dir)[1],
+                 3)
+    seq_s = times[("seq", 1)] + times[("seq", 2)]
+    grid = b3_grid(torch, dev)
+    grid_err = max(grid.values())
+    if not grid_err <= TOL_B3:
+        fail(f"B3 at the conv_study grid: {grid_err:.3e} > {TOL_B3:g}")
+    per_trial = {k: v for k, v in times.items() if k[0] == "conv"}
+    seq_trial = {k: v for k, v in times.items() if k[0] == "seq"}
+    say(f"[22 conv_study {' '.join(STUDY_ARGV)}] {card} | trials (number, "
+        f"state, values) from results.db: {rows} | wall s per trial: "
+        + ", ".join(f"trial {n} {v:.2f}" for (_, n), v in per_trial.items())
+        + f" | study calls: --n_jobs 1 (1 trial) {walls[1]:.2f} s, --n_jobs 2"
+        f" (trials 1 and 2) {walls[2]:.2f} s; the same grid points one after"
+        f" the other (their own study, --n_jobs 1): trials 1 + 2 "
+        f"{times[('seq', 1)]:.2f} + {times[('seq', 2)]:.2f} = {seq_s:.2f} s "
+        f"(trial 0 {times[('seq', 0)]:.2f}), n_jobs 2 / sequential "
+        f"{walls[2] / seq_s:.3f} | optuna_export: {n_exported} trials "
+        f"| best trial {best.number} {best.params}, its train_state.pt "
+        "through B3 on H36M test windows vs the plain forward, max abs err "
+        f"/ max(1, max|out|): {fmt_served(conv_errs)} (tol {TOL_E2E:g}) | "
+        f"launches on the path {conv_launches} | B3 at "
+        f"the grid's {len(grid)} kernel shapes, B = 1 and 128, random "
+        f"weights, second launch bit-identical: max abs err {grid_err:.3e} "
+        "(" + ", ".join(f"{k[0]}x{k[1]} {e:.1e}" for k, e in grid.items())
+        + ")")
+    out["conv_study"] = {"launches": conv_launches, "walls": walls,
+                         "trial_s": {str(n): v for (_, n), v in
+                                     per_trial.items()},
+                         "sequential_trial_s": {str(n): v for (_, n), v in
+                                                seq_trial.items()},
+                         "grid_err": grid_err, "served_err": max(
+                             e for e, _ in conv_errs.values())}
+
+    # [23] mlp_study and autoreg_study
+    mlp_dir = work / "mlp_study"
+    shutil.rmtree(mlp_dir, ignore_errors=True)
+    reset()
+    with TimedObjective(mlp_study, times, "mlp"):
+        t0 = time.perf_counter()
+        mlp_study.main([*MLP_STUDY_ARGV, "--data_dir", str(data_dir),
+                        "--study_dir", str(mlp_dir)])
+        mlp_wall = time.perf_counter() - t0
+    study, mlp_rows = study_trials(mlp_dir)
+    check_trials("mlp_study", mlp_rows, 2)
+    best = study.best_trial
+    mlp_errs, mlp_pred = serve_trial(
+        state_of(mlp_dir / f"trial{best.number}", f"mlp_trial{best.number}"),
+        lambda a: model_from_checkpoint_meta(vars(a)),
+        mlp_mixer.FusedMlpMixer, x_h36m, (1, 32, 128))
+    mlp_launches = read()
+    # the trained weights (odd widths, folded BatchNorm where the trial
+    # drew it) through B4 and its plain version, each against a float64
+    # evaluation of the same packed weights
+    mlp_b4 = b4_against_float64(torch, mlp_pred._fused, x_h36m.to(dev),
+                                (1, 32, 128))
+    ar_dir = work / "autoreg_study"
+    shutil.rmtree(ar_dir, ignore_errors=True)
+    reset()
+    with TimedObjective(autoreg_study, times, "autoreg"):
+        t0 = time.perf_counter()
+        autoreg_study.main([*AR_STUDY_ARGV, "--data_dir", str(work / "ais"),
+                            "--study_dir", str(ar_dir)])
+        ar_wall = time.perf_counter() - t0
+    _, ar_rows = study_trials(ar_dir)
+    check_trials("autoreg_study", ar_rows, 1)
+    ar_errs, _ = serve_trial(
+        state_of(ar_dir / "trial0", "ar_mpjpe_trial0"),
+        lambda a: conv_study._build_model(a, 33, a.input_n_model,
+                                          a.output_n_model),
+        conv_mixer_mc.FusedConvMixerMC, x_ais, (1, 128))
+    ar_launches = read()
+    say(f"[23 mlp_study {' '.join(MLP_STUDY_ARGV)}; autoreg_study "
+        f"{' '.join(AR_STUDY_ARGV)}] {card} | mlp_study trials {mlp_rows} "
+        f"(wall s per trial: " + ", ".join(
+            f"trial {n} {v:.2f}" for (t, n), v in times.items() if t == "mlp")
+        + f"; study {mlp_wall:.2f} s) | best trial {best.number} "
+        f"{best.params} through B4 on H36M test windows vs the plain "
+        f"forward: {fmt_served(mlp_errs)} (tol {TOL_E2E:g}); B4 and its "
+        "plain version against a float64 evaluation of the packed weights, "
+        "max abs err / max(1, max|ref|): " + ", ".join(
+            f"B={b} kernel {k:.3e}, plain {p:.3e} (max|ref| {m:.4g})"
+            for b, (k, p, m) in mlp_b4.items())
+        + f" (tol {TOL_B4:g}; {B4_REPEATS} launches bit-identical) | launches "
+        f"{mlp_launches} | autoreg_study trials {ar_rows} ({ar_wall:.2f} s),"
+        f" trial 0 through B3 on AIS test windows: {fmt_served(ar_errs)} "
+        f"(tol {TOL_E2E:g}) | launches {ar_launches}")
+    for tag, launches, k in (("mlp_study", mlp_launches, "mlp_mixer_fused"),
+                             ("autoreg_study", ar_launches, "conv_mixer_mc"),
+                             ("conv_study", conv_launches, "conv_mixer_mc")):
+        if launches[k] < 1:
+            fail(f"{k} was not launched on the {tag} path")
+    out["mlp_study"] = {"launches": mlp_launches, "wall": mlp_wall,
+                        "served_err": max(e for e, _ in mlp_errs.values())}
+    out["autoreg_study"] = {"launches": ar_launches, "wall": ar_wall,
+                            "served_err": max(e for e, _ in ar_errs.values())}
+    return out
+
+
 def main() -> None:
+    t_run = time.perf_counter()
     import numpy as np
     import torch
 
@@ -2305,6 +2813,12 @@ def main() -> None:
     paths = angle_and_ais_paths(torch, np, dev, card, work, data_dir,
                                 counters)
 
+    # [21] checkpoint interchange; [22]-[23] the studies, each from its
+    # module's main to its best trial served through its kernel
+    interchange = checkpoint_interchange(torch, np, dev, card, work, data_dir,
+                                         counters, steps_per_epoch)
+    studies = study_paths(torch, np, dev, card, work, data_dir, counters)
+
     def timed(v, **extra):
         """A times entry of b1_times, b2_times or b4_times as the kernels
         line's keys."""
@@ -2378,6 +2892,7 @@ def main() -> None:
          "plain_ms": b3_t[("autoregressive", 128)][1],
          "bound_ms": b3_t[("autoregressive", 128)][2][0],
          "bound_by": b3_t[("autoregressive", 128)][2][1], "library_ms": None,
+         "conv_study_grid_max_abs_err": studies["conv_study"]["grid_err"],
          "study": {"ms": b3_t[("study", 128)][0],
                    "plain_ms": b3_t[("study", 128)][1],
                    "bound_ms": b3_t[("study", 128)][2][0]},
@@ -2391,11 +2906,15 @@ def main() -> None:
          "replaces": "motionmixerconv_tpu/ops/pallas_mixer.py:278",
          "launches": am_launches["mlp_mixer_fused"], "max_abs_err": max(
              b4_err, *(v["err"] for v in new["b4"].values())),
+         "jax_ckpt_max_abs_err": interchange["anchor_err"],
          **timed(b4_t[128], library_ms=None),
          "by_batch": {str(b): timed(v) for b, v in b4_t.items()},
-         "new_shapes": {f"angle_mlp B={b}": timed(
+         "new_shapes": {**{f"angle_mlp B={b}": timed(
              v, max_abs_err=new["b4"][b]["err"])
-             for b, v in new["b4_times"].items()}},
+             for b, v in new["b4_times"].items()},
+             **{f"jax_ckpt B={b}": timed(
+                 v, max_abs_err=interchange["anchor_err"])
+                for b, v in interchange["b4_times"].items()}}},
     ]
     for k in kernels:
         k["launches_by_path"] = {"serve": launches.get(k["name"], 0),
@@ -2404,7 +2923,19 @@ def main() -> None:
                                  "amass": am_launches[k["name"]],
                                  **{tag: paths[tag]["launches"][k["name"]]
                                     for tag in ("angle", "angle_autoregressive",
-                                                "ais", "ais_autoregressive")}}
+                                                "ais", "ais_autoregressive")},
+                                 "jax_ckpt": interchange["launches"][k["name"]],
+                                 **{tag: studies[tag]["launches"][k["name"]]
+                                    for tag in ("conv_study", "mlp_study",
+                                                "autoreg_study")}}
+    say(f"[run] {time.perf_counter() - t_run:.1f} s, the kernels' build "
+        f"included | phases 21-23: {interchange['seconds']:.1f} s "
+        f"interchange, conv_study calls "
+        f"{sum(studies['conv_study']['walls'].values()):.1f} s (and "
+        f"{sum(studies['conv_study']['sequential_trial_s'].values()):.1f} s "
+        f"the sequential reference), mlp_study "
+        f"{studies['mlp_study']['wall']:.1f} s, autoreg_study "
+        f"{studies['autoreg_study']['wall']:.1f} s")
     say(json.dumps({"kernels": kernels}))
     say(card)
     say(json.dumps({"ok": True, "device": {

@@ -240,6 +240,7 @@ def _train_and_evaluate(
     teacher_forcing_epochs: Optional[int] = None,
     test_batch_size: Optional[int] = None,
     state_copy_path: Optional[str] = None,
+    epoch_callback=None,
 ):
     """Epoch driver: train -> validate -> grouped per-action test (the two
     metrics of ``test_kind``, named ``metric_names``, the first times
@@ -248,7 +249,13 @@ def _train_and_evaluate(
     to ``state_copy_path`` when given). ``teacher_forcing_epochs`` not None
     selects the autoregressive trainer: teacher forcing while ``epoch`` is
     below it, closed loop after. ``args.epochs_per_dispatch`` > 1 runs the
-    epochs in chunks (``_train_and_evaluate_fused``)."""
+    epochs in chunks (``_train_and_evaluate_fused``).
+
+    ``epoch_callback(epoch, history)`` runs after each epoch's metrics are
+    in ``history`` and its checkpoint is written: the studies report and
+    prune through it (``sweep/engine.py``; the runners close their logger
+    before its ``TrialPruned`` propagates). It forces the per-epoch path,
+    as in the JAX package: pruning needs a host decision every epoch."""
     autoreg = teacher_forcing_epochs is not None
     history = {"train": [], "val": [], "test": [],
                "metrics": {name: [] for name in metric_names},
@@ -264,7 +271,10 @@ def _train_and_evaluate(
                             epoch, meta=vars(args))
 
     epd = int(getattr(args, "epochs_per_dispatch", 1) or 1)
-    if epd > 1:
+    if epd > 1 and epoch_callback is not None:
+        print(">>> --epochs_per_dispatch ignored: per-epoch reporting/pruning "
+              "requires the per-epoch path")
+    elif epd > 1:
         return _train_and_evaluate_fused(
             args, trainer, logger, history, save, epd,
             dataset=dataset, frames=frames, vald=vald, vframes=vframes,
@@ -304,6 +314,8 @@ def _train_and_evaluate(
         print(f"epoch {epoch}: {tf_note}train {train_loss:.4f} val "
               f"{val_loss:.4f} test {m1_avg:.4f} ({epoch_s:.1f}s, train "
               f"{train_s:.1f}s)")
+        if epoch_callback is not None:
+            epoch_callback(epoch, history)
     return history
 
 
@@ -404,13 +416,16 @@ def _train_and_evaluate_fused(args, trainer: Trainer, logger: MetricLogger,
 
 
 def run_h36m(args, model: Optional[ConvMixer] = None,
-             model_name: Optional[str] = None, init_state_dict=None):
+             model_name: Optional[str] = None, init_state_dict=None,
+             epoch_callback=None):
     """H36M direct training (train_mixer_h36m.py:47-279 + per-epoch tests)
     on ``args.dev``: xyz (66 dims, input /1000, MPJPE and AUC-PCK) or, with
     ``--loss_type angle``, expmap angles (48 dims, input unscaled, L1
     loss, euler validation, euler and joint-angle test).
     ``init_state_dict`` (reference layout) replaces the seeded init, e.g.
-    to start from the JAX package's init. Returns (history, trainer)."""
+    to start from the JAX package's init; ``--resume`` takes a
+    ``train_state.pt`` or a JAX ``.ckpt``. ``epoch_callback`` as in
+    ``_train_and_evaluate``. Returns (history, trainer)."""
     device = resolve_device(getattr(args, "dev", "cuda"))
     xyz = args.loss_type == "mpjpe"
     dim_used = H36M_DIM_USED_XYZ if xyz else H36M_DIM_USED_ANGLE
@@ -444,7 +459,8 @@ def run_h36m(args, model: Optional[ConvMixer] = None,
             dataset, dataset.frames_on(device), vald, vald.frames_on(device),
             test_frames, test_starts, test_gids, action_names, start_epoch,
             test_kind="h36m_xyz" if xyz else "h36m_angle",
-            metric_names=_h36m_metric_names(args.loss_type))
+            metric_names=_h36m_metric_names(args.loss_type),
+            epoch_callback=epoch_callback)
     finally:
         logger.close()
     return history, trainer
@@ -452,7 +468,7 @@ def run_h36m(args, model: Optional[ConvMixer] = None,
 
 def run_h36m_autoregressive(args, model: Optional[ConvMixer] = None,
                             model_name: Optional[str] = None,
-                            init_state_dict=None):
+                            init_state_dict=None, epoch_callback=None):
     """H36M autoregressive training (train_autoreg_mixer_h36m.py:49-192) on
     ``args.dev``: the model sees (input_n_model -> output_n_model) windows
     and is rolled over (input_n_dataset + output_n_dataset) sequences in
@@ -487,7 +503,8 @@ def run_h36m_autoregressive(args, model: Optional[ConvMixer] = None,
             dataset, dataset.frames_on(device), vald, vald.frames_on(device),
             test_frames, test_starts, test_gids, action_names,
             test_kind="ar", metric_names=_h36m_metric_names(args.loss_type),
-            teacher_forcing_epochs=args.n_epochs_teacher_forcing)
+            teacher_forcing_epochs=args.n_epochs_teacher_forcing,
+            epoch_callback=epoch_callback)
     finally:
         logger.close()
     return history, trainer
@@ -508,13 +525,15 @@ def _ais_splits(args, input_n: int, output_n: int):
 
 
 def run_ais(args, model: Optional[ConvMixer] = None,
-            model_name: Optional[str] = None, init_state_dict=None):
+            model_name: Optional[str] = None, init_state_dict=None,
+            epoch_callback=None):
     """AIS direct training (train_mixer_ais.py:47-292) on ``args.dev``: the
     ConvMixer on the 33 used dims of 19 keypoints, data in meters (input
     and loss unscaled), the 'simple' grouped test over the two test actions
     with its MPJPE reported in mm (x1000, train_mixer_ais.py:386-388).
-    ``init_state_dict`` (reference layout) replaces the seeded init.
-    Returns (history, trainer)."""
+    ``init_state_dict`` (reference layout) replaces the seeded init;
+    ``epoch_callback`` as in ``_train_and_evaluate``. Returns (history,
+    trainer)."""
     device = resolve_device(getattr(args, "dev", "cuda"))
     dataset, vald, test_sets = _ais_splits(args, args.input_n, args.output_n)
     print(f">>> Training dataset length: {len(dataset)}")
@@ -536,7 +555,8 @@ def run_ais(args, model: Optional[ConvMixer] = None,
             args, trainer, logger, log_dir,
             dataset, dataset.frames_on(device), vald, vald.frames_on(device),
             test_frames, test_starts, test_gids, action_names,
-            test_kind="simple", m1_scale=1000.0)
+            test_kind="simple", m1_scale=1000.0,
+            epoch_callback=epoch_callback)
     finally:
         logger.close()
     return history, trainer
@@ -544,7 +564,7 @@ def run_ais(args, model: Optional[ConvMixer] = None,
 
 def run_ais_autoregressive(args, model: Optional[ConvMixer] = None,
                            model_name: Optional[str] = None,
-                           init_state_dict=None):
+                           init_state_dict=None, epoch_callback=None):
     """AIS autoregressive training (train_autoreg_mixer_ais.py:63-203) on
     ``args.dev``: the H36M autoregressive scheme on the 33 AIS dims, in
     meters; the test metric is the rollout loss x1000 (mm) and the AUC-PCK
@@ -574,7 +594,8 @@ def run_ais_autoregressive(args, model: Optional[ConvMixer] = None,
             dataset, dataset.frames_on(device), vald, vald.frames_on(device),
             test_frames, test_starts, test_gids, action_names,
             test_kind="ar", m1_scale=1000.0,
-            teacher_forcing_epochs=args.n_epochs_teacher_forcing)
+            teacher_forcing_epochs=args.n_epochs_teacher_forcing,
+            epoch_callback=epoch_callback)
     finally:
         logger.close()
     return history, trainer

@@ -5,10 +5,10 @@ amass/test_mixer_amass.py:20-60): the 18 predicted joints are scattered
 into the 22-joint ground truth, MPJPE x1000, divided by the sample count
 (the reference divides by a never-incremented counter and returns inf).
 ``--model_path`` is a torch ``.pt``: a reference state_dict, the trainer's
-``model.pt``, or its ``train_state.pt``, whose stored training args fill
-the architecture flags (explicit flags win). The JAX package's ``.ckpt``
-raises until checkpoint interchange (ROADMAP item A14). ``--dev`` defaults
-to ``cuda``.
+``model.pt``, or its ``train_state.pt``; or, under any other name, the JAX
+package's ``.ckpt`` (``train/state.py``). Stored training args (a
+``train_state.pt``'s, a ``.ckpt``'s meta) fill the architecture flags
+(explicit flags win). ``--dev`` defaults to ``cuda``.
 
 Usage: python -m motionmixerconv_tpu_torch.cli.test_mixer_amass \\
     --data_dir D --model_path S/amass_3d_25frames_ckpt/train_state.pt
@@ -23,9 +23,10 @@ from ..data.constants import AMASS_DIM_USED
 from ..models.torch_io import read_weights
 from ..serving import resolve_device
 from ..train import Trainer, make_optimizer
+from ..train.state import load_weights
 from ._runner import amass_test, build_mlp_mixer
 
-# filled from a train_state.pt's stored training args; explicit flags win
+# filled from a checkpoint's stored training args; explicit flags win
 ARCH_META_KEYS = (
     "input_n", "output_n", "skip_rate", "activation", "r_se", "hidden_dim",
     "num_blocks", "tokens_mlp_dim", "channels_mlp_dim", "regularization",
@@ -60,17 +61,12 @@ def parse_args(argv=None, meta=None):
 
 def main(argv=None) -> float:
     args = parse_args(argv)
-    if not args.model_path.endswith((".pt", ".pth")):
-        raise NotImplementedError(
-            f"{args.model_path}: only torch .pt/.pth files load here; the "
-            "JAX .ckpt lands with checkpoint interchange (ROADMAP queue A "
-            "item 14)")
     state_dict, meta = read_weights(args.model_path)
     if meta:
         args = parse_args(argv, meta=meta)
     device = resolve_device(args.dev)
     model = build_mlp_mixer(args, args.pose_dim, args.input_n, args.output_n)
-    model.load_state_dict(state_dict, strict=True)
+    load_weights(model, state_dict)
     model = model.to(device)
     test = AMASSDataset(args.data_dir, args.input_n, args.output_n,
                         args.skip_rate, split=2)

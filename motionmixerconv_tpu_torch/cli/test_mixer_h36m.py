@@ -8,12 +8,12 @@ velocity (delta_x) decoding by default, and the full-skeleton 32-joint
 MPJPE with equal-joint re-insertion. The per-action horizon average is the
 JAX CLI's: its sums run on over the actions.
 
-``--model_path`` is a torch ``.pt``/``.pth``: a reference-layout MlpMixer
-state_dict, or a trainer's ``train_state.pt``, whose stored training args
-fill the architecture flags (explicit flags win; ``model_type conv``
-rebuilds a ConvMixer). The JAX package's ``.ckpt`` raises until
-checkpoint interchange (ROADMAP queue A item 14). ``--dev`` defaults to
-``cuda`` and raises without a card.
+``--model_path`` is a torch ``.pt``/``.pth`` (a reference-layout MlpMixer
+state_dict, or a trainer's ``train_state.pt``) or, under any other name,
+the JAX package's ``.ckpt`` (``train/state.py``). Stored training args (a
+``train_state.pt``'s, a ``.ckpt``'s meta) fill the architecture flags
+(explicit flags win; ``model_type conv`` rebuilds a ConvMixer). ``--dev``
+defaults to ``cuda`` and raises without a card.
 
 Usage: python -m motionmixerconv_tpu_torch.cli.test_mixer_h36m \\
     --data_dir D --model_path M.pt
@@ -32,11 +32,12 @@ from ..data.windows import batch_starts
 from ..models.torch_io import read_weights
 from ..serving import resolve_device
 from ..train.loop import Trainer
+from ..train.state import load_weights
 from ._runner import build_conv_mixer, build_mlp_mixer
 
 EVAL_FRAMES = [1, 3, 7, 9, 13, 17, 21, 24]  # test_mixer_h36m.py:20
 
-# architecture/eval-semantics keys filled from a train_state.pt's stored
+# architecture/eval-semantics keys filled from a checkpoint's stored
 # training args; explicit flags still win, and keys with no flag here (the
 # conv-model ones) ride along for build_conv_mixer's getattr defaults
 ARCH_META_KEYS = (
@@ -116,8 +117,8 @@ def parse_args(argv=None, meta=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("--data_dir", type=str, default="./data")
     parser.add_argument("--model_path", type=str, required=True,
-                        help="torch .pt/.pth: a reference state_dict, "
-                             "model.pt or train_state.pt")
+                        help="torch .pt/.pth (a reference state_dict, "
+                             "model.pt or train_state.pt) or a JAX .ckpt")
     parser.add_argument("--input_n", type=int, default=10)
     parser.add_argument("--output_n", type=int, default=25)
     parser.add_argument("--skip_rate", type=int, default=1)
@@ -144,11 +145,6 @@ def parse_args(argv=None, meta=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    if not args.model_path.endswith((".pt", ".pth")):
-        raise NotImplementedError(
-            f"{args.model_path}: only torch .pt/.pth files load here; the "
-            "JAX .ckpt lands with checkpoint interchange (ROADMAP queue A "
-            "item 14)")
     state_dict, meta = read_weights(args.model_path)
     if meta:
         # the checkpoint's training args as defaults: a bare --model_path
@@ -165,7 +161,7 @@ def main(argv=None):
     else:
         model = build_mlp_mixer(args, args.pose_dim, args.input_n,
                                 args.output_n)
-    model.load_state_dict(state_dict, strict=True)
+    load_weights(model, state_dict)
     return test_pretrained(model.to(device), args, device)
 
 

@@ -1,10 +1,14 @@
-"""Weights into the port: JAX-package variables and reference ``.pt`` files.
+"""Weights between the port and the JAX package, and reference ``.pt`` files.
 
 ``state_dict_from_jax`` is this package's own copy of the JAX package's
 ``export_conv_mixer`` and ``export_mlp_mixer``
 (``motionmixerconv_tpu/models/torch_io.py``): it turns a flax ConvMixer's or
 MlpMixer's variables, given as numpy arrays, into the reference torch
-state_dict that the port's modules load strictly.
+state_dict that the port's modules load strictly. ``jax_from_state_dict``
+is the inverse, the port's copy of ``convert_conv_mixer`` and
+``convert_mlp_mixer``: a reference state_dict into the flax variable tree
+(``se2``, which repeats ``se``, and ``encoder.frequencies``, a constant
+present only with harmonics, are not read).
 """
 
 from __future__ import annotations
@@ -151,10 +155,154 @@ def state_dict_from_jax(variables: Dict[str, Any], num_blocks: int,
 
 
 def read_weights(path: str) -> Tuple[Dict[str, torch.Tensor], Optional[dict]]:
-    """(state_dict, training-args meta) of a torch ``.pt``/``.pth`` file,
-    read onto the CPU with ``weights_only``: a reference state_dict has no
-    meta (None); the trainers' ``train_state.pt`` holds both."""
+    """(state_dict, training-args meta) of a checkpoint, read onto the CPU.
+    A torch ``.pt``/``.pth`` file with ``weights_only``: a reference
+    state_dict has no meta (None); the trainers' ``train_state.pt`` holds
+    both. Any other name is the JAX package's ``.ckpt``
+    (``train/state.py``), whose meta is None where it stored none and whose
+    state_dict lacks ``encoder.frequencies`` (load it with
+    ``train.state.load_weights``)."""
+    from ..train.state import is_torch_file, read_jax_checkpoint
+
+    if not is_torch_file(path):
+        ck = read_jax_checkpoint(path)
+        return ck.state_dict(), ck.meta
     payload = torch.load(path, map_location="cpu", weights_only=True)
     if isinstance(payload, dict) and {"model", "meta"} <= set(payload):
         return payload["model"], payload["meta"]
     return payload, None
+
+
+# ------------------------------------------------ reference layout -> flax
+
+
+def _linear(sd: Flat, prefix: str) -> dict:
+    return {"kernel": np.ascontiguousarray(sd[f"{prefix}.weight"].T),
+            "bias": sd[f"{prefix}.bias"]}
+
+
+def _conv2d(sd: Flat, prefix: str) -> dict:
+    w = sd[f"{prefix}.weight"]  # (out, in, kh, kw)
+    return {"kernel": np.ascontiguousarray(w.transpose(2, 3, 1, 0)),
+            "bias": sd[f"{prefix}.bias"]}
+
+
+def _layernorm(sd: Flat, prefix: str) -> dict:
+    return {"scale": sd[f"{prefix}.weight"], "bias": sd[f"{prefix}.bias"]}
+
+
+def _se(sd: Flat, prefix: str, seq_name: str) -> dict:
+    return {"fc1": {"kernel": np.ascontiguousarray(
+                sd[f"{prefix}.{seq_name}.0.weight"].T)},
+            "fc2": {"kernel": np.ascontiguousarray(
+                sd[f"{prefix}.{seq_name}.2.weight"].T)}}
+
+
+def _reg(sd: Flat, prefix: str, params: dict, batch_stats: dict,
+         key: str) -> None:
+    """BatchNorm regularization, where there is one (regularization -1)."""
+    if f"{prefix}.weight" in sd:
+        params[key] = {"BatchNorm_0": {"scale": sd[f"{prefix}.weight"],
+                                       "bias": sd[f"{prefix}.bias"]}}
+        batch_stats[key] = {"BatchNorm_0": {
+            "mean": sd[f"{prefix}.running_mean"],
+            "var": sd[f"{prefix}.running_var"]}}
+
+
+def _mlp_block(sd: Flat, prefix: str, batch_stats_out: dict,
+               key: str) -> dict:
+    p: dict = {"fc1": _linear(sd, f"{prefix}.fc1"),
+               "fc2": _linear(sd, f"{prefix}.fc2")}
+    bs: dict = {}
+    _reg(sd, f"{prefix}.reg1", p, bs, "reg1")
+    _reg(sd, f"{prefix}.reg2", p, bs, "reg2")
+    if bs:
+        batch_stats_out[key] = bs
+    return p
+
+
+def convert_mlp_mixer_arrays(sd: Flat, num_blocks: int) -> Dict[str, Any]:
+    """Reference MlpMixer state_dict arrays -> flax variables ({'params'}
+    and, with BatchNorm, {'batch_stats'})."""
+    params: dict = {}
+    batch_stats: dict = {}
+    w = sd["conv.weight"]  # (H, 1, 1, D)
+    params["conv"] = {"kernel": np.ascontiguousarray(w[:, 0, 0, :].T),
+                      "bias": sd["conv.bias"]}
+    for i in range(num_blocks):
+        tp = f"Mixer_Block.{i}"
+        bp: dict = {}
+        bbs: dict = {}
+        for ln in ("LN1", "LN2"):
+            if f"{tp}.{ln}.weight" in sd:
+                bp[ln] = _layernorm(sd, f"{tp}.{ln}")
+        for mb in ("mlp_block_token_mixing", "mlp_block_channel_mixing"):
+            if f"{tp}.{mb}.fc1.weight" in sd:
+                bp[mb] = _mlp_block(sd, f"{tp}.{mb}", bbs, mb)
+        if f"{tp}.se.excitation.0.weight" in sd:
+            bp["se"] = _se(sd, f"{tp}.se", "excitation")
+        params[f"Mixer_Block_{i}"] = bp
+        if bbs:
+            batch_stats[f"Mixer_Block_{i}"] = bbs
+    params["LN"] = _layernorm(sd, "LN")
+    params["fc_out"] = _linear(sd, "fc_out")
+    w = sd["conv_out.weight"]  # (P, T, 1)
+    params["conv_out"] = {"kernel": np.ascontiguousarray(w[:, :, 0].T),
+                          "bias": sd["conv_out.bias"]}
+    out: Dict[str, Any] = {"params": params}
+    if batch_stats:
+        out["batch_stats"] = batch_stats
+    return out
+
+
+def convert_conv_mixer_arrays(sd: Flat, num_blocks: int) -> Dict[str, Any]:
+    """Reference ConvMixer state_dict arrays -> flax variables."""
+    params: dict = {}
+    batch_stats: dict = {}
+    params["encoder"] = {
+        "embed_mlp": _linear(sd, "encoder.embed_mlp"),
+        "channelUpscaling": _linear(sd, "encoder.channelUpscaling")}
+    for i in range(num_blocks):
+        tp = f"Mixer_Block.{i}"
+        bp: dict = {"LN1": _layernorm(sd, f"{tp}.LN1")}
+        bbs: dict = {}
+        for conv in ("conv1", "conv2"):
+            if f"{tp}.{conv}.conv.weight" not in sd:
+                continue
+            if conv == "conv2":
+                bp["LN2"] = _layernorm(sd, f"{tp}.LN2")
+            cb: dict = {"conv": _conv2d(sd, f"{tp}.{conv}.conv")}
+            cbs: dict = {}
+            _reg(sd, f"{tp}.{conv}.reg", cb, cbs, "reg")
+            bp[conv] = cb
+            if cbs:
+                bbs[conv] = cbs
+        if f"{tp}.se.excitationBlock.0.weight" in sd:
+            bp["se"] = _se(sd, f"{tp}.se", "excitationBlock")
+        params[f"Mixer_Block_{i}"] = bp
+        if bbs:
+            batch_stats[f"Mixer_Block_{i}"] = bbs
+    params["LN"] = _layernorm(sd, "LN")
+    w = sd["conv_out.weight"]  # (P, T, 1, 1)
+    params["conv_out"] = {"kernel": np.ascontiguousarray(w[:, :, 0, 0].T),
+                          "bias": sd["conv_out.bias"]}
+    w = sd["project_channels.weight"]  # (1, C, 1, 1)
+    params["project_channels"] = {
+        "kernel": np.ascontiguousarray(w[:, :, 0, 0].T),
+        "bias": sd["project_channels.bias"]}
+    params["fc_out"] = _linear(sd, "fc_out")
+    out: Dict[str, Any] = {"params": params}
+    if batch_stats:
+        out["batch_stats"] = batch_stats
+    return out
+
+
+def jax_from_state_dict(state_dict, num_blocks: int) -> Dict[str, Any]:
+    """The port's (reference-layout) state_dict -> flax ConvMixer or
+    MlpMixer variables as float32 numpy arrays; the family is read off the
+    keys (only the ConvMixer has an encoder)."""
+    sd = {k: (v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
+              else np.asarray(v)) for k, v in state_dict.items()}
+    if "encoder.embed_mlp.weight" in sd:
+        return convert_conv_mixer_arrays(sd, num_blocks)
+    return convert_mlp_mixer_arrays(sd, num_blocks)

@@ -77,8 +77,10 @@ class Predictor:
     Args:
         model: a port ConvMixer or MlpMixer ((B, input_n, D) -> (B,
             output_n, D)); the predictor works on its own copy.
-        state_dict: reference-layout weights, loaded with ``strict=True``;
-            None keeps the model's own.
+        state_dict: reference-layout weights, loaded with ``strict=True``
+            (``train.state.load_weights``: one read from a JAX ``.ckpt``
+            takes ``encoder.frequencies`` from the model); None keeps the
+            model's own.
         device: where the model lives and predictions run ("cuda" default).
         use_fused: route small batches to the fused kernel. Shapes it does
             not take fall back to the plain forward with a visible warning
@@ -97,7 +99,9 @@ class Predictor:
         self.device = resolve_device(device)
         model = copy.deepcopy(model)
         if state_dict is not None:
-            model.load_state_dict(state_dict, strict=True)
+            from .train.state import load_weights
+
+            load_weights(model, state_dict)
         self.model = model.to(self.device).eval()
         self.fused_max_batch = fused_max_batch
         self._fused = None
@@ -132,17 +136,13 @@ class Predictor:
     def from_checkpoint(cls, model: Optional[nn.Module], path: str,
                         model_factory: Optional[Callable[[], nn.Module]] = None,
                         **kw) -> "Predictor":
-        """Serve a torch ``.pt``/``.pth``: a reference state_dict or the
-        trainers' ``train_state.pt``, loaded into ``model`` strictly.
-        ``model=None`` rebuilds the trained architecture from a
-        ``train_state.pt``'s stored training args (as the JAX Predictor does
-        from its ``.ckpt``); a bare state_dict carries none and takes
-        ``model_factory()``. The JAX ``.ckpt`` format lands with checkpoint
-        interchange."""
-        if not path.endswith((".pt", ".pth")):
-            raise NotImplementedError(
-                f"{path}: only torch .pt/.pth checkpoints load here; .ckpt "
-                "lands with checkpoint interchange (ROADMAP queue A item 14)")
+        """Serve a checkpoint, routed by name as the JAX Predictor routes
+        it: a torch ``.pt``/``.pth`` (a reference state_dict or the
+        trainers' ``train_state.pt``), or else the JAX package's ``.ckpt``
+        (``train/state.py``), loaded into ``model`` strictly.
+        ``model=None`` rebuilds the trained architecture from the stored
+        training args of a ``train_state.pt`` or a ``.ckpt`` with meta; a
+        file without them takes ``model_factory()``."""
         from .models.torch_io import read_weights
 
         state_dict, meta = read_weights(path)
@@ -155,8 +155,9 @@ class Predictor:
                 model = model_factory()
             else:
                 raise ValueError(
-                    f"{path}: a .pt state_dict carries no architecture; pass "
-                    "the model or a model_factory")
+                    f"{path}: the checkpoint carries no architecture "
+                    "(no training-args meta); pass the model or a "
+                    "model_factory")
         return cls(model, state_dict, **kw)
 
     @torch.inference_mode()

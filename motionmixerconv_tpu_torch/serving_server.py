@@ -15,9 +15,10 @@ Transport is a dependency-free ``ThreadingHTTPServer``:
 - ``GET  /stats``                   requests/batches/mean batch size/latency
 
 Run: ``python -m motionmixerconv_tpu_torch.serving_server --model_path m.pt``
-(a ``train_state.pt`` rebuilds its model, ConvMixer or MlpMixer, from the
-stored training args; a bare state_dict takes the shape flags, with
-``--arch mlp`` for an MlpMixer).
+(a ``train_state.pt``, or a JAX ``.ckpt`` with meta, rebuilds its model,
+ConvMixer or MlpMixer, from the stored training args; a bare state_dict or
+a ``.ckpt`` without meta takes the shape flags, with ``--arch mlp`` for an
+MlpMixer).
 """
 
 from __future__ import annotations
@@ -383,12 +384,13 @@ def build_parser():
                                              "with dynamic micro-batching.")
     ap.add_argument("--model_path", required=True,
                     help=".pt: a trainer's train_state.pt or a reference "
-                         "torch state_dict")
+                         "torch state_dict; any other name: a JAX .ckpt")
     ap.add_argument("--arch", choices=["auto", "conv", "mlp"], default="auto",
-                    help="auto rebuilds the architecture from a "
-                         "train_state.pt's stored training args, falling "
-                         "back to the flags below (conv) for a bare "
-                         "state_dict; mlp builds an MlpMixer from the flags")
+                    help="auto rebuilds the architecture from the stored "
+                         "training args of a train_state.pt or a .ckpt, "
+                         "falling back to the flags below (conv) for a "
+                         "file without them; mlp builds an MlpMixer from "
+                         "the flags")
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=8476)
     ap.add_argument("--max_batch", type=int, default=128)
@@ -446,9 +448,10 @@ def model_from_args(args) -> "torch.nn.Module":
 
 def load_predictor(args, device):
     """The Predictor the serving CLI serves on ``device``: with ``--arch
-    auto`` a ``train_state.pt`` rebuilds its model from the stored training
-    args (JAX serving_server.py:439-447); otherwise, and for a bare
-    state_dict, the model comes from the shape flags."""
+    auto`` a ``train_state.pt`` or a ``.ckpt`` with meta rebuilds its model
+    from the stored training args (JAX serving_server.py:439-447);
+    otherwise, and for a file without them, the model comes from the shape
+    flags."""
     from .serving import Predictor
 
     if args.arch == "auto":

@@ -7,10 +7,27 @@ step's few hundred to few thousand kernels once, at capture, and then
 replays them with one call a batch. A step's body must do only device
 work: whatever it decides on the host (a Python branch, a cache lookup, a
 counter) is fixed at capture and is not re-run by a replay.
+
+Concurrent trainers (a study's ``--n_jobs 2`` trials, threads of one
+process on one card): every call of a CUDA ``StepGraph`` (an eager warm-up
+call, the capture, a replay) holds ``GRAPH_LOCK``, and each capture is
+thread-local (``capture_error_mode="thread_local"``) on the graph's own
+side stream. The lock keeps every other trainer's step off the card's one
+CUDA generator while a capture is underway: a dropout draw or a replay's
+offset advance from another thread then raises ("Offset increment outside
+graph capture"), and entering ``torch.cuda.graph`` synchronizes the device
+and empties the allocator's cache, which the allocator refuses while
+another capture is underway. Thread-local capture lets the other thread's
+remaining CUDA calls (copies, allocations, host reads) neither fail nor
+poison the capture. The studies run each trial on a stream of its own,
+off the legacy default stream (``sweep/engine.py``). The lock serializes
+only the host's enqueue of steps, which the interpreter lock serializes
+anyway; the card still runs both trials' kernels.
 """
 
 from __future__ import annotations
 
+import threading
 from typing import Callable, Optional, Sequence
 
 import torch
@@ -20,6 +37,7 @@ import torch
 # state -- must not land in the graph); they are real steps, the first
 # batches of the sequence
 WARMUP_CALLS = 3
+GRAPH_LOCK = threading.Lock()  # held by every call of a CUDA StepGraph
 
 
 class StepGraph:
@@ -63,12 +81,17 @@ class StepGraph:
         return self.sums.clone()
 
     def _call(self, batch) -> None:
+        if not self.capture:
+            self.body(self.sums, *batch)
+            return
+        with GRAPH_LOCK:
+            self._call_on_card(batch)
+
+    def _call_on_card(self, batch) -> None:
         if self.graph is not None:
             for s, b in zip(self.static, batch):
                 s.copy_(b)
             self.graph.replay()
-        elif not self.capture:
-            self.body(self.sums, *batch)
         elif self.eager_calls < WARMUP_CALLS:
             main = torch.cuda.current_stream(self.device)
             self._side.wait_stream(main)
@@ -79,7 +102,8 @@ class StepGraph:
         else:
             self.static = [b.clone() for b in batch]
             graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph):
+            with torch.cuda.graph(graph, stream=self._side,
+                                  capture_error_mode="thread_local"):
                 self.body(self.sums, *self.static)
             self.graph = graph
             graph.replay()  # the capture ran nothing: this is the step

@@ -44,6 +44,8 @@ class Optimizer:
                  clip_grad: Optional[float] = None):
         self.params = list(params)
         self.capturable = self.params[0].device.type == "cuda"
+        self.base_lr = float(lr)
+        self.weight_decay = weight_decay
         self._lr = float(lr)
         self._lr_t = (torch.tensor(self._lr, device=self.params[0].device)
                       if self.capturable else None)
@@ -63,6 +65,16 @@ class Optimizer:
     def lr(self) -> float:
         """The learning rate the next step uses."""
         return self._lr
+
+    def lr_at(self, steps: int) -> float:
+        """The learning rate after ``steps`` steps: MultiStepLR's product
+        over the milestones passed (optax's piecewise-constant schedule at
+        count ``steps``)."""
+        lr = self.base_lr
+        for m, n in (self.milestones or {}).items():
+            if m <= steps:
+                lr *= self.gamma ** n
+        return lr
 
     def zero_grad(self) -> None:
         self.adam.zero_grad(set_to_none=True)
@@ -84,7 +96,7 @@ class Optimizer:
 
     def _schedule(self) -> None:
         if self.milestones is not None and self.steps in self.milestones:
-            self._lr = self._lr * self.gamma ** self.milestones[self.steps]
+            self._lr = self.lr_at(self.steps)
             self._set_lr()
 
     def _set_lr(self) -> None:

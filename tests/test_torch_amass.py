@@ -144,7 +144,9 @@ def test_test_cli_matches_the_jax_cli(runs, amass_dir, tmp_path):
     """The AMASS test CLI on a reference-layout .pt of the JAX init equals
     the JAX CLI on the same file (rtol 1e-5); on the port run's
     train_state.pt (its stored args fill the architecture flags) it repeats
-    the run's last test MPJPE. A JAX .ckpt raises naming item 14."""
+    the run's last test MPJPE. On the JAX run's model.ckpt (its meta fills
+    the architecture flags) it gives the JAX CLI's number on that file
+    (rtol 1e-5)."""
     _, got, _, variables, run_dir = runs
     pt = str(tmp_path / "init.pt")
     torch.save(state_dict_from_jax(variables, 2), pt)
@@ -158,9 +160,13 @@ def test_test_cli_matches_the_jax_cli(runs, amass_dir, tmp_path):
                           "--batch_size", "20", "--model_path",
                           os.path.join(run_dir, STATE_FILE)])
     assert last == pytest.approx(got["test"][-1], rel=1e-5)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        test_cli.main(["--model_path", str(tmp_path / "m.ckpt"),
-                       "--dev", "cpu"])
+    ckpt = os.path.join(os.path.dirname(os.path.dirname(run_dir)), "jax",
+                        "amass_3d_25frames_ckpt", "model.ckpt")
+    argv = ["--data_dir", amass_dir, "--batch_size", "20", "--model_path",
+            ckpt]
+    want = jax_test_cli.main(argv)
+    assert test_cli.main([*argv, "--dev", "cpu"]) == pytest.approx(
+        want, rel=1e-5)
 
 
 def test_train_state_serves_through_b4(runs):

@@ -95,3 +95,51 @@ def test_harmonic_kernels_count_their_launches_on_the_device(card):
     for _ in range(5):
         graph.replay()
     assert since(start) == (7, 7)
+
+
+@pytest.mark.card
+def test_step_graphs_take_turns_across_threads(card):
+    """Two trainers' step graphs, each drawing dropout, on threads of one
+    process (a study's --n_jobs 2 on one card), each thread on a stream of
+    its own: the second warms up and captures while the first replays.
+    Every call holds ``GRAPH_LOCK``, so neither raises (the card's one CUDA
+    generator refuses a replay's offset advance while another thread
+    captures) and both keep drawing masks."""
+    import threading
+
+    from motionmixerconv_tpu_torch.train.graphs import StepGraph
+
+    drop = torch.nn.Dropout(0.5)
+    captured = threading.Event()
+    results, errors = {}, []
+
+    def run(tag, n, wait):
+        try:
+            with torch.cuda.stream(torch.cuda.Stream(card)):
+                x = torch.ones(1 << 16, device=card)
+                graph = StepGraph(lambda sums, b: sums.add_(drop(x * b).sum()),
+                                  card, (), capture=True)
+                if wait is not None and not wait.wait(timeout=60):
+                    raise TimeoutError("the other thread never captured")
+
+                def after():
+                    if graph.graph is not None:
+                        captured.set()
+
+                sums = graph.run(torch.ones(n, device=card), after=after)
+                results[tag] = (float(sums), graph.graph is not None)
+        except BaseException as e:  # reported by the main thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=("first", 3000, None)),
+               threading.Thread(target=run, args=("second", 50, captured))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads)
+    assert not errors, errors
+    for tag, n in (("first", 3000), ("second", 50)):
+        total, replayed = results[tag]
+        # each call sums 2^16 draws of 0 or 2: about 2^16 a call
+        assert replayed and abs(total / n / (1 << 16) - 1) < 0.05, results

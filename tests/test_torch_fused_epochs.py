@@ -501,11 +501,35 @@ def test_test_cli_matches_jax(h36m_dir, tmp_path, output_n):
 
 
 def test_test_cli_refuses_a_ckpt_and_defaults_to_the_card(h36m_dir, tmp_path):
-    """A JAX ``.ckpt`` raises naming ROADMAP item 14; ``--dev`` defaults to
-    the card, and without one the CLI raises instead of running on the
-    CPU."""
-    with pytest.raises(NotImplementedError, match="item 14"):
-        test_cli.main(["--data_dir", h36m_dir, "--model_path", "m.ckpt"])
+    """A JAX-written MlpMixer ``.ckpt`` (no meta: the flags give the
+    widths) returns the JAX CLI's numbers on it at rtol 1e-5, and a
+    ``.ckpt`` whose pickle names a foreign class is refused, named;
+    ``--dev`` defaults to the card, and without one the CLI raises instead
+    of running on the CPU."""
+    import pickle
+
+    from motionmixerconv_tpu.train.state import TrainState
+    from motionmixerconv_tpu.train.state import save_checkpoint as jax_save
+
+    jmodel = JaxMlpMixer(**dict(MLP, num_classes=66, input_size=66, r_se=4,
+                                regularization=0.1))
+    variables = jmodel.init(jax.random.PRNGKey(2), jnp.zeros((1, 10, 66)),
+                            training=False)
+    ckpt = str(tmp_path / "m.ckpt")
+    jax_save(ckpt, TrainState(
+        step=jnp.zeros((), jnp.int32), params=variables["params"],
+        batch_stats={}, opt_state=jax_make_optimizer(1e-3).init(
+            variables["params"]), rng=jax.random.PRNGKey(0)), 0)
+    argv = ["--data_dir", h36m_dir, "--model_path", ckpt, "--skip_rate", "5",
+            "--actions_to_consider", "walking", *MLP_FLAGS]
+    np.testing.assert_allclose(test_cli.main([*argv, "--dev", "cpu"]),
+                               jax_test_cli.main(argv), rtol=1e-5)
+    with open(ckpt, "rb") as f:
+        payload = pickle.load(f)
+    with open(ckpt, "wb") as f:
+        pickle.dump({**payload, "meta": {"model": SimpleNamespace()}}, f)
+    with pytest.raises(pickle.UnpicklingError, match="SimpleNamespace"):
+        test_cli.main([*argv, "--dev", "cpu"])
     model = MlpMixer(**dict(MLP, num_classes=66, input_size=66, r_se=4))
     path = str(tmp_path / "mlp.pt")
     torch.save(model.state_dict(), path)

@@ -115,6 +115,13 @@ def test_predict_autoregressive_matches_jax():
 
 
 def test_pt_checkpoint_roundtrip(tmp_path):
+    """A .pt round trip serves bit for bit; a JAX-written .ckpt (no meta)
+    of the same model serves in the given model as the JAX Predictor does
+    (2e-5, the plain-forward parity tolerance)."""
+    from motionmixerconv_tpu.train import make_optimizer as jax_make_optimizer
+    from motionmixerconv_tpu.train.state import TrainState
+    from motionmixerconv_tpu.train.state import save_checkpoint as jax_save
+
     p = _small_predictor()
     path = str(tmp_path / "model.pt")
     torch.save(p.model.state_dict(), path)
@@ -123,9 +130,19 @@ def test_pt_checkpoint_roundtrip(tmp_path):
     torch.testing.assert_close(q.predict(x), p.predict(x), atol=0, rtol=0)
     with pytest.raises(ValueError, match="no architecture"):
         Predictor.from_checkpoint(None, path, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        Predictor.from_checkpoint(ConvMixer(**SMALL), str(tmp_path / "m.ckpt"),
-                                  device="cpu")
+    jmodel, variables, _ = _both(SMALL)
+    ckpt = str(tmp_path / "m.ckpt")
+    jax_save(ckpt, TrainState(
+        step=jnp.zeros((), jnp.int32), params=variables["params"],
+        batch_stats={}, opt_state=jax_make_optimizer(1e-3).init(
+            variables["params"]), rng=jax.random.PRNGKey(0)), 0)
+    r = Predictor.from_checkpoint(ConvMixer(**SMALL), ckpt, device="cpu",
+                                  use_fused=False)
+    np.testing.assert_allclose(
+        r.predict(x).numpy(), np.asarray(JaxPredictor(jmodel, variables)
+                                         .predict(jnp.asarray(x))), atol=2e-5)
+    with pytest.raises(ValueError, match="no architecture"):
+        Predictor.from_checkpoint(None, ckpt, device="cpu")
     with pytest.raises(NotImplementedError, match="item 17"):
         Predictor(ConvMixer(**SMALL), device="cpu", mesh=object())
 
@@ -250,9 +267,8 @@ def test_from_checkpoint_rebuilds_the_model_from_train_state(tmp_path):
     torch.testing.assert_close(p.predict(x), want, rtol=0, atol=2e-5)
 
 
-def test_model_from_checkpoint_meta_refuses_the_mlp_family():
-    """The MlpMixer family's metas rebuild (the test keeps the name it had
-    while they were refused): H36M
+def test_model_from_checkpoint_meta_rebuilds_the_mlp_family():
+    """The MlpMixer family's metas rebuild: H36M
     ``model_type mlp`` on 66 dims and AMASS (no model_type, no kernel
     flags) on ``pose_dim``, with the stored widths."""
     from motionmixerconv_tpu_torch.cli import train_mixer_amass, train_mixer_h36m
@@ -590,7 +606,8 @@ def test_http_server_roundtrip():
 def test_port_imports_neither_jax_nor_the_jax_package():
     """Every module of the port imports cleanly in a fresh interpreter that
     then holds no jax and no module of the JAX package (whose name is a
-    prefix of the port's, so a plain startswith check would be wrong)."""
+    prefix of the port's, so a plain startswith check would be wrong), and
+    none of msgpack, pandas and optuna, which the card's machine lacks."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import motionmixerconv_tpu_torch as pkg\n"
@@ -598,8 +615,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "for n in names: importlib.import_module(n)\n"
         "bad = [m for m in sys.modules if m in ('jax', 'flax', 'motionmixerconv_tpu')\n"
         "       or m.startswith(('jax.', 'flax.', 'motionmixerconv_tpu.'))]\n"
+        "absent = [m for m in ('msgpack', 'pandas', 'optuna') if m in sys.modules]\n"
         "assert len(names) >= 10, names\n"
         "assert not bad, bad\n"
+        "assert not absent, absent\n"
         "print('ok', len(names))\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)

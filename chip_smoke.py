@@ -81,7 +81,19 @@ version, twice for bit-identity, [23] ``sweep.mlp_study`` (TPE, seed 0, 2
 trials) with its best trial through B4 and ``sweep.autoreg_study`` (one AIS
 grid trial, a teacher-forcing and a closed-loop epoch) through B3 (launch
 counts reset just before each of 21-23's paths and read just after its
-serving). Then the whole run's seconds, one JSON line with every kernel's
+serving), [24] the convergence-parity runs of
+``motionmixerconv_tpu_torch.parity_runs`` at their full schedules from the
+recorded inits (matched-init and lockstep H36M, each with the plain
+encoder and with ``--fused_encoder``, the lockstep drift pair, AMASS and
+both autoregressive configurations), each held to the recorded torch
+reference at the tolerances of ``tests/test_parity_runs.py`` and the drift
+endpoints to theirs, B1's device launches counted in the fused runs, the
+trained flagship, autoregressive and AMASS models served through B2, B3
+and B4 against their plain forwards and float64, [25] ``make_cmu_corpus``
+-> ``CMUDataset`` (xyz) -> graph-replayed training steps of an MlpMixer
+at the CMU width -> served through B4 against its plain forward and
+float64 (launch counts reset just before 24's and 25's paths and read just
+after their serving). Then the whole run's seconds, one JSON line with every kernel's
 numbers, the card's name and power limit, and the result line. Any failure exits non-zero; with
 no CUDA device, or with the port's package missing beside this script, it
 exits at once and prints no result.
@@ -197,6 +209,11 @@ MLP_STUDY_ARGV = ["--n_trials", "2", "--n_epochs", "1", "--skip_rate", "5"]
 AR_STUDY_ARGV = ["--dataset_type", "ais", "--n_trials", "1", "--n_epochs",
                  "2", "--n_epochs_teacher_forcing", "1", "--skip_rate", "5"]
 STUDY_GRID = tuple((kh, kw) for kh in (1, 5, 9) for kw in range(1, 30, 4))
+# phase 25: the CMU corpus (every action, 2 files of CMU_FRAMES frames),
+# CMU_EPOCHS epochs of CMU_STEPS graph-replayed steps at batch TRAIN_BATCH
+CMU_FRAMES = 600
+CMU_STEPS = 20
+CMU_EPOCHS = 2
 DEVICE = "cuda:0"  # the one card the script needs
 # H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores, HBM3
 PEAK_F32_FLOPS = 67e12
@@ -2077,6 +2094,245 @@ def study_paths(torch, np, dev, card, work, data_dir, counters) -> dict:
     return out
 
 
+def core_against_float64(torch, fused, x, batches) -> dict:
+    """A fused model's kernel (B2, B3 or B4) and its plain version on its
+    core's input for the first B rows of ``x``, each against the plain
+    version in float64 on the same packed weights, relative to max(1,
+    max|ref|) (trained outputs reach hundreds of mm); B2 and B3 take the
+    float32 encoder's output, as served. Fails on any case; returns {B:
+    (kernel err, plain err, max|ref|)}."""
+    from motionmixerconv_tpu_torch.ops import conv_mixer, conv_mixer_mc
+
+    if isinstance(fused, conv_mixer.FusedConvMixer):
+        kernel, plain = conv_mixer.conv_mixer_fused, conv_mixer.conv_mixer_plain
+        tol, name = TOL_B2, "B2"
+
+        def core_in(xb):
+            return fused.encoder(xb)[..., 0].contiguous()
+    elif isinstance(fused, conv_mixer_mc.FusedConvMixerMC):
+        kernel = conv_mixer_mc.conv_mixer_mc_fused
+        plain, tol, name = conv_mixer_mc.conv_mixer_mc_plain, TOL_B3, "B3"
+
+        def core_in(xb):
+            return fused.encoder(xb).permute(0, 3, 1, 2).contiguous()
+    else:
+        return b4_against_float64(torch, fused, x, batches)
+    spec, wts = fused.spec, fused.weights
+    out = {}
+    with torch.no_grad():
+        for b in batches:
+            y = core_in(x[:b].contiguous())
+            got = kernel(y, wts, spec)
+            differ = not torch.equal(got, kernel(y, wts, spec))
+            ref = plain(y.double(), wts.double(), spec)
+            scale = max(1.0, float(ref.abs().max()))
+            out[b] = (float((got.double() - ref).abs().max()) / scale,
+                      float((plain(y, wts, spec).double() - ref).abs().max())
+                      / scale, float(ref.abs().max()))
+            torch.cuda.synchronize()
+            if not torch.isfinite(got).all() or differ \
+                    or not out[b][0] <= tol:
+                fail(f"{name} B={b}: {out[b]} against float64 (tol {tol:g})"
+                     ", or a second launch differs")
+    return out
+
+
+def fmt_f64(errs: dict) -> str:
+    return ", ".join(f"B={b} kernel {k:.3e}, plain {p:.3e} (max|ref| {m:.4g})"
+                     for b, (k, p, m) in errs.items())
+
+
+def parity_paths(torch, np, dev, card, work, counters) -> dict:
+    """Phase 24: every run of ``parity_runs.RUNS`` at its full schedule and
+    the flagship widths from its recorded init (the matched-init and
+    lockstep H36M runs with the plain encoder and with ``--fused_encoder``,
+    the lockstep drift pair, AMASS, ``ar``, ``ar_small``), held by
+    ``parity_runs.compare`` to the recorded torch runs at the tolerances of
+    ``tests/test_parity_runs.py``; B1's device launches in the fused runs;
+    the trained flagship, ``ar`` and AMASS models served through B2, B3
+    and B4, each against its plain forward and against float64. Launch
+    counts reset just before the runs and read just after the serving."""
+    from motionmixerconv_tpu_torch import parity_runs as pr
+    from motionmixerconv_tpu_torch.data import AMASSDataset, H36MDataset
+    from motionmixerconv_tpu_torch.data.constants import (AMASS_DIM_USED,
+                                                          H36M_DIM_USED_XYZ)
+    from motionmixerconv_tpu_torch.ops import (conv_mixer, conv_mixer_mc,
+                                               harmonic, mlp_mixer)
+    from motionmixerconv_tpu_torch.train import Trainer
+
+    golden = str(ROOT / "tests" / "golden")
+    recorded = pr.load_recorded(golden)
+    pwork = work / "parity"
+    shutil.rmtree(pwork, ignore_errors=True)
+    t_phase = time.perf_counter()
+    for c in counters.values():
+        c.reset()
+    h36m_dir, amass_dir = pr.make_corpora(str(pwork), recorded)
+    corpus_s = time.perf_counter() - t_phase
+    c = pr.H36M_CFG
+    n_train = len(H36MDataset(h36m_dir, c["input_n"], c["output_n"],
+                              c["skip_rate"], split=0))
+    steps = c["n_epochs"] * -(-n_train // c["batch_size"])
+    results, b1 = {}, {}
+    for name, (_, _, ref_key, _) in pr.RUNS.items():
+        with counted_launches(harmonic, Trainer, COUNTED_METHODS) as in_run:
+            results[name] = pr.run(name, golden, h36m_dir, amass_dir,
+                                   str(pwork), dev=DEVICE)
+        b1[name] = {k: in_run["_train_sums"][k] for k in B1_IN_RUN}
+        ours, ref = results[name], recorded["results"][ref_key]
+        say(f"[24 parity {name}] {pr.report(name, ours, recorded)} | B1 "
+            f"device launches in training {b1[name]} for "
+            + (f"{steps} train steps" if name.startswith("h36m") else
+               "its train steps") + " | train per epoch ours "
+            + json.dumps([round(v, 4) for v in ours["train_per_epoch"]])
+            + " torch " + json.dumps([round(v, 4) for v in
+                                      ref["train_per_epoch"]])
+            + (" | test per epoch ours " + json.dumps(
+                [round(v, 4) for v in ours["test_per_epoch"]]) + " torch "
+               + json.dumps([round(v, 4) for v in ref["test_per_epoch"]])
+               if "test_per_epoch" in ref else ""))
+    verdict = pr.compare(results, recorded, golden)
+    runs_s = time.perf_counter() - t_phase - corpus_s
+
+    # the trained models through their kernels, on test windows as the
+    # trainers feed them (H36M xyz in meters, AMASS in meters)
+    h36m_test = H36MDataset(h36m_dir, 10, 25, 1, actions=["walking"], split=2)
+    x_h36m = torch.as_tensor(np.stack([h36m_test[i] for i in range(128)])
+                             )[:, :10, H36M_DIM_USED_XYZ] * 1e-3
+    am_test = AMASSDataset(amass_dir, 10, 25, 1, split=2)
+    idx = am_test.window_starts[:128, None] + np.arange(10)
+    x_am = torch.as_tensor(am_test.frames[idx][..., AMASS_DIM_USED])
+    served, preds = {}, {}
+    for run, cls, x in (("h36m", conv_mixer.FusedConvMixer, x_h36m),
+                        ("ar", conv_mixer_mc.FusedConvMixerMC, x_h36m),
+                        ("amass", mlp_mixer.FusedMlpMixer, x_am)):
+        pred, got, err, _ = serve_checks(torch, dev, results[run]["checkpoint"],
+                                         x.contiguous(), False)
+        if not isinstance(pred._fused, cls):
+            fail(f"parity {run}: served by {type(pred._fused).__name__}, not "
+                 f"{cls.__name__}: {pred.fused_fallback_reason}")
+        served[run] = {"kernel": cls.__name__, "err": err}
+        preds[run] = (pred, x)
+        if not err <= TOL_E2E:
+            fail(f"parity {run}'s trained model through {cls.__name__}: "
+                 f"{err:.3e} from its plain forward (tol {TOL_E2E:g})")
+    torch.cuda.synchronize()
+    launches = {k: c.value for k, c in counters.items()}
+    # the kernels' cores against float64: comparisons, not on the path
+    for run, (pred, x) in preds.items():
+        served[run]["float64"] = core_against_float64(
+            torch, pred._fused, x.to(dev), (1, 32, 128))
+    seconds = time.perf_counter() - t_phase
+    with open(work / "parity.json", "w") as f:
+        json.dump({"card": card, "results": results, "compare": verdict,
+                   "b1": b1, "served": served}, f, indent=1, default=str)
+    drift = verdict["drift"]
+    say(f"[24 parity] {card} | corpora {corpus_s:.1f} s, runs "
+        f"{runs_s:.1f} s, phase {seconds:.1f} s | {len(results)} runs, "
+        f"{sum(len(r) for r in verdict['rows'].values())} checks at the "
+        "tolerances of tests/test_parity_runs.py, failures: "
+        f"{verdict['failures'] or 'none'} | drift endpoints (relative L2 "
+        "distance of the final parameters to the reference's): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in
+                    drift["param_drift_rel"].items())
+        + f" (recorded JAX: {drift['jax_recorded']}); last test gaps "
+        + ", ".join(f"{k} {v:.4e}" for k, v in drift["last_test_gap"].items())
+        + " | trained models served, max abs err / max(1, max|out|) against "
+        "the plain forward, and the kernel's core against float64: "
+        + " ; ".join(f"{run} via {v['kernel']} {v['err']:.3e}; "
+                     f"{fmt_f64(v['float64'])}" for run, v in served.items())
+        + f" (tol {TOL_E2E:g}) | launches on the path {launches}")
+    if verdict["failures"]:
+        fail("parity runs outside the recorded reference's tolerances: "
+             + "; ".join(verdict["failures"]))
+    for name in ("h36m_fused", "h36m_sync_fused"):
+        for k in B1_IN_RUN:
+            if b1[name][k] < steps:
+                fail(f"{k}: {b1[name][k]} device launches in {name}'s "
+                     f"{steps} train steps")
+    for k in ("conv_mixer_fused", "conv_mixer_mc", "mlp_mixer_fused"):
+        if launches[k] < 1:
+            fail(f"{k} was not launched on the parity path")
+    return {"launches": launches, "b1": b1, "steps": steps,
+            "served": served, "seconds": seconds, "drift": drift}
+
+
+def cmu_path(torch, np, dev, card, work, counters) -> dict:
+    """Phase 25: ``make_cmu_corpus`` -> ``CMUDataset`` (xyz) -> graph-
+    replayed training steps of the AMASS CLI's MlpMixer at the CMU width
+    (the 75 used dims) -> served through B4, against its plain forward and
+    against float64; B4 timed at that width. Launch counts reset just
+    before the corpus and read just after the serving."""
+    from motionmixerconv_tpu_torch.data import WindowedCorpus, fixtures
+    from motionmixerconv_tpu_torch.data.cmu import CMU_ACTIONS, CMUDataset
+    from motionmixerconv_tpu_torch.models import MlpMixer
+    from motionmixerconv_tpu_torch.ops import mlp_mixer
+    from motionmixerconv_tpu_torch.serving import Predictor
+    from motionmixerconv_tpu_torch.train import Trainer, make_optimizer
+
+    t0 = time.perf_counter()
+    for c in counters.values():
+        c.reset()
+    cdir = work / "cmu"
+    shutil.rmtree(cdir, ignore_errors=True)
+    fixtures.make_cmu_corpus(str(cdir), actions=CMU_ACTIONS, n_files=2,
+                             n_frames=CMU_FRAMES, seed=SEED + 25)
+    train = CMUDataset(str(cdir), 10, 25, split=0, mode="xyz")
+    test = CMUDataset(str(cdir), 10, 25, split=2, mode="xyz",
+                      data_mean=train.data_mean, data_std=train.data_std)
+    dim_used = train.dimensions_to_use
+    cfg = dict(AMASS_MLP, num_classes=len(dim_used), input_size=len(dim_used))
+    model = MlpMixer(**cfg, generator=torch.Generator().manual_seed(SEED + 25))
+    model = model.to(dev)
+    cut = WindowedCorpus(frames=train.frames, window_starts=np.random
+                         .default_rng(SEED + 25).permutation(
+                             train.window_starts)[:CMU_STEPS * TRAIN_BATCH],
+                         seq_len=train.seq_len)
+    trainer = Trainer(model, make_optimizer(model.parameters(), lr=1e-3,
+                                            steps_per_epoch=CMU_STEPS),
+                      loss_type="mpjpe", dim_used=dim_used, input_n=10,
+                      output_n=25, input_scale=1.0)
+    frames, tframes = train.frames_on(dev), test.frames_on(dev)
+    losses = [trainer.train_epoch(cut, frames, TRAIN_BATCH, seed=e)
+              for e in range(CMU_EPOCHS)]
+    replayed = [r for r in trainer._graphs.values() if r.graph is not None]
+    val = trainer.validate(test, tframes, TRAIN_BATCH)
+    pred = Predictor(trainer.model, device=dev)
+    if not isinstance(pred._fused, mlp_mixer.FusedMlpMixer):
+        fail(f"the CMU model is not served by B4: {pred.fused_fallback_reason}")
+    x = torch.as_tensor(np.stack([test[i] for i in range(len(test))])
+                        )[:, :10, dim_used].contiguous()
+    with torch.no_grad():
+        err = served_err(torch, pred.predict(x), pred.model(x.to(dev)))
+    torch.cuda.synchronize()
+    launches = {k: c.value for k, c in counters.items()}
+    # comparisons and timings, not on the path
+    f64 = b4_against_float64(torch, pred._fused, x.to(dev), (1, 32, 128))
+    times = b4_times(torch, pred._fused, x.to(dev), model_floats(pred.model),
+                     (1, 32, 128))
+    seconds = time.perf_counter() - t0
+    say(f"[25 cmu] {card} | make_cmu_corpus {len(CMU_ACTIONS)} actions x 2 "
+        f"files x {CMU_FRAMES} frames -> CMUDataset xyz: {len(train)} train "
+        f"windows ({CMU_STEPS * TRAIN_BATCH} trained on), {len(test)} test, "
+        f"{len(dim_used)} used dims | MlpMixer {cfg['num_blocks']} blocks, "
+        f"hidden {cfg['hidden_dim']}: {CMU_EPOCHS} epochs of {CMU_STEPS} "
+        f"steps, {len(replayed)} captured step graph(s) replayed, train loss "
+        f"{losses}, validation {val:.4f} | served through B4 (b={len(x)} test"
+        f" windows) vs the plain forward, max abs err / max(1, max|out|) "
+        f"{err:.3e} (tol {TOL_E2E:g}); B4 and its plain version against "
+        f"float64: {fmt_f64(f64)} (tol {TOL_B4:g}) | launches on the path "
+        f"{launches} | B4 ms per call/device/plain (bound ms, by; profiler "
+        f"us/launch): {fmt_b4_times('cmu', times)} | phase {seconds:.1f} s")
+    if not (all(np.isfinite(losses)) and np.isfinite(val)):
+        fail(f"CMU training: losses {losses}, validation {val}")
+    if not replayed:
+        fail("CMU training replayed no captured step graph")
+    if not err <= TOL_E2E or launches["mlp_mixer_fused"] < 1:
+        fail(f"CMU model through B4: err {err:.3e}, launches {launches}")
+    return {"launches": launches, "seconds": seconds, "err": err,
+            "float64": f64, "times": times}
+
+
 def main() -> None:
     t_run = time.perf_counter()
     import numpy as np
@@ -2819,6 +3075,11 @@ def main() -> None:
                                          counters, steps_per_epoch)
     studies = study_paths(torch, np, dev, card, work, data_dir, counters)
 
+    # [24] the parity runs at their full schedules, their trained models
+    # through B2, B3 and B4; [25] the CMU pipeline to B4
+    parity = parity_paths(torch, np, dev, card, work, counters)
+    cmu = cmu_path(torch, np, dev, card, work, counters)
+
     def timed(v, **extra):
         """A times entry of b1_times, b2_times or b4_times as the kernels
         line's keys."""
@@ -2842,7 +3103,8 @@ def main() -> None:
          "by_batch": {str(b): timed(v) for b, v in b2.items()},
          "new_shapes": {f"{t} B={b}": timed(
              v, max_abs_err=new["b2"][t][b]["err"])
-             for t, c in new["b2_times"].items() for b, v in c.items()}},
+             for t, c in new["b2_times"].items() for b, v in c.items()},
+         "parity_trained_against_float64": parity["served"]["h36m"]},
         {"name": "harmonic_dense_fwd", "route": "cuda",
          "source": "motionmixerconv_tpu_torch/csrc/harmonic_dense.cu",
          "replaces": "motionmixerconv_tpu/ops/pallas_harmonic.py:54",
@@ -2858,6 +3120,9 @@ def main() -> None:
              for r, t in fwd_t.items()},
          "angle_device_launches_per_train_step":
              paths["angle"]["b1_train"][B1_IN_RUN[0]] / paths["angle"]["steps"],
+         "parity_device_launches_per_train_step": {
+             run: parity["b1"][run][B1_IN_RUN[0]] / parity["steps"]
+             for run in ("h36m_fused", "h36m_sync_fused")},
          "new_shapes": {f"angle (D, n, E) {B1_ANGLE_SHAPE} R={r}": timed(
              t, max_abs_err=new["b1_fwd"][("direct", r)])
              for r, t in nb1["fwd"].items()}},
@@ -2879,6 +3144,9 @@ def main() -> None:
              for r in B1_BWD_ROWS},
          "angle_device_launches_per_train_step":
              paths["angle"]["b1_train"][B1_IN_RUN[1]] / paths["angle"]["steps"],
+         "parity_device_launches_per_train_step": {
+             run: parity["b1"][run][B1_IN_RUN[1]] / parity["steps"]
+             for run in ("h36m_fused", "h36m_sync_fused")},
          "new_shapes": {
              f"angle (D, n, E) {B1_ANGLE_SHAPE} R={r} "
              f"{'dW+db+dx' if dx else 'dW+db'}": timed(t, err_over_max={
@@ -2893,6 +3161,7 @@ def main() -> None:
          "bound_ms": b3_t[("autoregressive", 128)][2][0],
          "bound_by": b3_t[("autoregressive", 128)][2][1], "library_ms": None,
          "conv_study_grid_max_abs_err": studies["conv_study"]["grid_err"],
+         "parity_trained_against_float64": parity["served"]["ar"],
          "study": {"ms": b3_t[("study", 128)][0],
                    "plain_ms": b3_t[("study", 128)][1],
                    "bound_ms": b3_t[("study", 128)][2][0]},
@@ -2914,7 +3183,10 @@ def main() -> None:
              for b, v in new["b4_times"].items()},
              **{f"jax_ckpt B={b}": timed(
                  v, max_abs_err=interchange["anchor_err"])
-                for b, v in interchange["b4_times"].items()}}},
+                for b, v in interchange["b4_times"].items()},
+             **{f"cmu B={b}": timed(v, err_against_float64=cmu["float64"][b][0])
+                for b, v in cmu["times"].items()}},
+         "parity_trained_against_float64": parity["served"]["amass"]},
     ]
     for k in kernels:
         k["launches_by_path"] = {"serve": launches.get(k["name"], 0),
@@ -2927,7 +3199,9 @@ def main() -> None:
                                  "jax_ckpt": interchange["launches"][k["name"]],
                                  **{tag: studies[tag]["launches"][k["name"]]
                                     for tag in ("conv_study", "mlp_study",
-                                                "autoreg_study")}}
+                                                "autoreg_study")},
+                                 "parity": parity["launches"][k["name"]],
+                                 "cmu": cmu["launches"][k["name"]]}
     say(f"[run] {time.perf_counter() - t_run:.1f} s, the kernels' build "
         f"included | phases 21-23: {interchange['seconds']:.1f} s "
         f"interchange, conv_study calls "
@@ -2935,7 +3209,8 @@ def main() -> None:
         f"{sum(studies['conv_study']['sequential_trial_s'].values()):.1f} s "
         f"the sequential reference), mlp_study "
         f"{studies['mlp_study']['wall']:.1f} s, autoreg_study "
-        f"{studies['autoreg_study']['wall']:.1f} s")
+        f"{studies['autoreg_study']['wall']:.1f} s | phase 24 (parity) "
+        f"{parity['seconds']:.1f} s, phase 25 (cmu) {cmu['seconds']:.1f} s")
     say(json.dumps({"kernels": kernels}))
     say(card)
     say(json.dumps({"ok": True, "device": {

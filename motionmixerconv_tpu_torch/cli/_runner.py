@@ -240,6 +240,7 @@ def _train_and_evaluate(
     teacher_forcing_epochs: Optional[int] = None,
     test_batch_size: Optional[int] = None,
     state_copy_path: Optional[str] = None,
+    batch_order_fn=None,
     epoch_callback=None,
 ):
     """Epoch driver: train -> validate -> grouped per-action test (the two
@@ -251,11 +252,14 @@ def _train_and_evaluate(
     below it, closed loop after. ``args.epochs_per_dispatch`` > 1 runs the
     epochs in chunks (``_train_and_evaluate_fused``).
 
-    ``epoch_callback(epoch, history)`` runs after each epoch's metrics are
-    in ``history`` and its checkpoint is written: the studies report and
-    prune through it (``sweep/engine.py``; the runners close their logger
-    before its ``TrialPruned`` propagates). It forces the per-epoch path,
-    as in the JAX package: pruning needs a host decision every epoch."""
+    ``batch_order_fn(epoch)`` (epoch -> window permutation) replays an
+    explicit batch stream (the lockstep parity runs, ``parity_runs.py``);
+    direct trainer only. ``epoch_callback(epoch, history)`` runs after each
+    epoch's metrics are in ``history`` and its checkpoint is written: the
+    studies report and prune through it (``sweep/engine.py``; the runners
+    close their logger before its ``TrialPruned`` propagates). Either one
+    forces the per-epoch path, as in the JAX package: pruning needs a host
+    decision every epoch, and an explicit order is handed over per epoch."""
     autoreg = teacher_forcing_epochs is not None
     history = {"train": [], "val": [], "test": [],
                "metrics": {name: [] for name in metric_names},
@@ -271,10 +275,13 @@ def _train_and_evaluate(
                             epoch, meta=vars(args))
 
     epd = int(getattr(args, "epochs_per_dispatch", 1) or 1)
+    if epd > 1 and batch_order_fn is not None:
+        print(">>> --epochs_per_dispatch ignored: an explicit batch-order "
+              "stream (parity run) requires the per-epoch path")
     if epd > 1 and epoch_callback is not None:
         print(">>> --epochs_per_dispatch ignored: per-epoch reporting/pruning "
               "requires the per-epoch path")
-    elif epd > 1:
+    if epd > 1 and batch_order_fn is None and epoch_callback is None:
         return _train_and_evaluate_fused(
             args, trainer, logger, history, save, epd,
             dataset=dataset, frames=frames, vald=vald, vframes=vframes,
@@ -293,8 +300,9 @@ def _train_and_evaluate(
                 dataset, frames, args.batch_size, seed=epoch,
                 teacher_forcing=tf)
         else:
-            train_loss = trainer.train_epoch(dataset, frames, args.batch_size,
-                                             seed=epoch)
+            train_loss = trainer.train_epoch(
+                dataset, frames, args.batch_size, seed=epoch,
+                order=batch_order_fn(epoch) if batch_order_fn else None)
         train_s = time.perf_counter() - t0
         logger.add_scalar("perf/train_seq_per_sec",
                           len(dataset) / max(train_s, 1e-9), epoch)
@@ -417,15 +425,16 @@ def _train_and_evaluate_fused(args, trainer: Trainer, logger: MetricLogger,
 
 def run_h36m(args, model: Optional[ConvMixer] = None,
              model_name: Optional[str] = None, init_state_dict=None,
-             epoch_callback=None):
+             batch_order_fn=None, epoch_callback=None):
     """H36M direct training (train_mixer_h36m.py:47-279 + per-epoch tests)
     on ``args.dev``: xyz (66 dims, input /1000, MPJPE and AUC-PCK) or, with
     ``--loss_type angle``, expmap angles (48 dims, input unscaled, L1
     loss, euler validation, euler and joint-angle test).
     ``init_state_dict`` (reference layout) replaces the seeded init, e.g.
     to start from the JAX package's init; ``--resume`` takes a
-    ``train_state.pt`` or a JAX ``.ckpt``. ``epoch_callback`` as in
-    ``_train_and_evaluate``. Returns (history, trainer)."""
+    ``train_state.pt`` or a JAX ``.ckpt``. ``batch_order_fn`` and
+    ``epoch_callback`` as in ``_train_and_evaluate``. Returns (history,
+    trainer)."""
     device = resolve_device(getattr(args, "dev", "cuda"))
     xyz = args.loss_type == "mpjpe"
     dim_used = H36M_DIM_USED_XYZ if xyz else H36M_DIM_USED_ANGLE
@@ -460,7 +469,7 @@ def run_h36m(args, model: Optional[ConvMixer] = None,
             test_frames, test_starts, test_gids, action_names, start_epoch,
             test_kind="h36m_xyz" if xyz else "h36m_angle",
             metric_names=_h36m_metric_names(args.loss_type),
-            epoch_callback=epoch_callback)
+            batch_order_fn=batch_order_fn, epoch_callback=epoch_callback)
     finally:
         logger.close()
     return history, trainer

@@ -1,12 +1,12 @@
-"""Synthetic Human3.6M, AMASS and AIS corpora in the reference's exact
-on-disk formats.
+"""Synthetic Human3.6M, AMASS, CMU and AIS corpora in the reference's
+exact on-disk formats.
 
-The port's own copy of ``make_h36m_corpus``, ``make_amass_corpus`` and
-``make_ais_corpus`` from ``motionmixerconv_tpu/data/fixtures.py`` (numpy
-only, same random streams, so one seed writes the same files from either
-package). The real corpora are licensed and not redistributable; these
-make the CSV expmap, the SMPL npz and the keypoint JSON pipelines testable
-end to end. The CMU generator lands with its slice.
+The port's own copy of ``make_h36m_corpus``, ``make_amass_corpus``,
+``make_cmu_corpus`` and ``make_ais_corpus`` from
+``motionmixerconv_tpu/data/fixtures.py`` (numpy only, same random streams,
+so one seed writes the same files from either package). The real corpora
+are licensed and not redistributable; these make the CSV expmap, the SMPL
+npz and the keypoint JSON pipelines testable end to end.
 """
 
 from __future__ import annotations
@@ -85,6 +85,37 @@ def make_amass_corpus(
                         poses=poses,
                         mocap_framerate=np.float64(frame_rate),
                     )
+    return data_dir
+
+
+def make_cmu_corpus(
+    data_dir: str,
+    actions=("basketball", "walking"),
+    n_files: int = 2,
+    n_frames: int = 300,
+    seed: int = 0,
+) -> str:
+    """Write {action}/{action}_{i}.txt CSV files of 117-dim CMU expmap rows.
+
+    Format parity: load_data_cmu (h36m/utils/data_utils.py:333-394) — files
+    are numbered from 1 and live under a per-action directory; each row is
+    3 translation dims + 38 joints x 3 expmap dims. ``n_frames`` must be
+    >= 152 so the test-split selection (75-frame windows after the 2x
+    downsample) is valid.
+    """
+    rng = np.random.RandomState(seed)
+    for action in actions:
+        adir = os.path.join(data_dir, action)
+        os.makedirs(adir, exist_ok=True)
+        for i in range(n_files):
+            frames = _smooth_walk(rng, n_frames, 117, 0.02)
+            frames[:, 0:3] += rng.randn(3) * 100.0  # translation-ish
+            # a few constant columns so the std<1e-4 ignore logic triggers
+            frames[:, 36:39] = 0.0
+            np.savetxt(
+                os.path.join(adir, f"{action}_{i + 1}.txt"),
+                frames, delimiter=",", fmt="%.6f",
+            )
     return data_dir
 
 

@@ -90,6 +90,8 @@ def batch_starts(
     *,
     shuffle: bool,
     seed: Optional[int] = None,
+    pad_to_full: bool = True,
+    order: Optional[np.ndarray] = None,
 ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
     """Yield (starts, weight) batches covering every window exactly once.
 
@@ -99,17 +101,29 @@ def batch_starts(
     it equal the reference's ragged-batch averages. A padding row reads a
     valid window, so it is finite wherever the windows are: NaN times 0 is
     still NaN. (The JAX package pads with frame 0 of the corpus, the same
-    start wherever the first window starts there.)
+    start wherever the first window starts there.) ``pad_to_full=False``
+    leaves the last batch ragged.
+
+    ``order`` replaces the shuffle with an explicit window permutation: the
+    lockstep parity runs replay a recorded reference's batch stream
+    (``parity_runs.py``).
     """
-    order = np.arange(len(corpus))
-    if shuffle:
-        np.random.default_rng(seed).shuffle(order)
+    if order is not None:
+        order = np.asarray(order)
+        if order.shape[0] != len(corpus):
+            raise ValueError(
+                f"order has {order.shape[0]} entries for {len(corpus)} windows"
+            )
+    else:
+        order = np.arange(len(corpus))
+        if shuffle:
+            np.random.default_rng(seed).shuffle(order)
     starts = corpus.window_starts[order]
     n = len(order)
     for lo in range(0, n, batch_size):
         chunk = starts[lo : lo + batch_size]
         w = np.ones(len(chunk), dtype=np.float32)
-        if len(chunk) < batch_size:
+        if pad_to_full and len(chunk) < batch_size:
             pad = batch_size - len(chunk)
             chunk = np.concatenate(
                 [chunk, np.full(pad, corpus.window_starts[0], chunk.dtype)])

@@ -1,10 +1,9 @@
-"""Human3.6M forward kinematics in PyTorch.
+"""Human3.6M and CMU-mocap forward kinematics in PyTorch.
 
 Counterpart of ``motionmixerconv_tpu/geometry/forward_kinematics.py``: all
-32 joint rotations come from one batched Rodrigues over the (N, J) axis,
+joint rotations come from one batched Rodrigues over the (N, J) axis,
 then the chain is unrolled over the static topology as batched 3x3
-matmuls, so a whole corpus converts in one call on any device. The
-CMU skeleton lands with the CMU slice.
+matmuls, so a whole corpus converts in one call on any device.
 """
 
 from __future__ import annotations
@@ -60,9 +59,38 @@ def h36m_skeleton() -> Skeleton:
     return Skeleton(parent=_H36M_PARENT, offset=_H36M_OFFSET)
 
 
+# CMU-mocap 38-joint tree (reference h36m/utils/forward_kinematics.py:138-216
+# ``_some_variables_cmu``; the reference defines it but never trains on CMU)
+_CMU_PARENT = np.array(
+    [0, 1, 2, 3, 4, 5, 6, 1, 8, 9, 10, 11, 12, 1, 14, 15, 16, 17, 18, 19, 16,
+     21, 22, 23, 24, 25, 26, 24, 28, 16, 30, 31, 32, 33, 34, 35, 33, 37]
+) - 1
+
+_CMU_OFFSET = 70 * np.array(
+    [0, 0, 0, 0, 0, 0, 1.65674, -1.80282, 0.62477, 2.59720, -7.13576, 0,
+     2.49236, -6.84770, 0, 0.19704, -0.54136, 2.14581, 0, 0, 1.11249, 0, 0, 0,
+     -1.61070, -1.80282, 0.62476, -2.59502, -7.12977, 0, -2.46780, -6.78024,
+     0, -0.23024, -0.63258, 2.13368, 0, 0, 1.11569, 0, 0, 0, 0.01961, 2.05450,
+     -0.14112, 0.01021, 2.06436, -0.05921, 0, 0, 0, 0.00713, 1.56711, 0.14968,
+     0.03429, 1.56041, -0.10006, 0.01305, 1.62560, -0.05265, 0, 0, 0, 3.54205,
+     0.90436, -0.17364, 4.86513, 0, 0, 3.35554, 0, 0, 0, 0, 0, 0.66117, 0, 0,
+     0.53306, 0, 0, 0, 0, 0, 0.54120, 0, 0.54120, 0, 0, 0, -3.49802, 0.75994,
+     -0.32616, -5.02649, 0, 0, -3.36431, 0, 0, 0, 0, 0, -0.73041, 0, 0,
+     -0.58887, 0, 0, 0, 0, 0, -0.59786, 0, 0.59786]
+).reshape(-1, 3)
+
+
+@functools.lru_cache(maxsize=None)
+def cmu_skeleton() -> Skeleton:
+    """The 38-joint CMU-mocap skeleton (117-dim expmap frames)."""
+    return Skeleton(parent=_CMU_PARENT, offset=_CMU_OFFSET)
+
+
 def fkl(angles: torch.Tensor, skeleton: Optional[Skeleton] = None
         ) -> torch.Tensor:
-    """(N, 99) expmap frames -> (N, 32, 3) joint positions in mm.
+    """(N, 3 + 3J) expmap frames -> (N, J, 3) joint positions in mm, J = 32
+    for the default H3.6M skeleton (99-dim frames), 38 for
+    ``cmu_skeleton()`` (117-dim frames).
 
     Parity with reference ``fkl_torch`` (forward_kinematics.py:219-241):
     joints whose parent is the root keep their rest offset (the root

@@ -1,4 +1,4 @@
-from .encoding import PoseEncoder, harmonic_features
+from .encoding import ConvEncoder, PoseEncoder, harmonic_features
 from .mixer_conv import ConvBlock, ConvMixer, ConvMixerBlock, MultiChanSELayer
 from .mixer_mlp import (MixerBlock, MixerBlockChannel, MixerBlockToken,
                         MlpBlock, MlpMixer, SELayer)
@@ -6,6 +6,7 @@ from .torch_io import read_weights, state_dict_from_jax
 
 __all__ = [
     "PoseEncoder",
+    "ConvEncoder",
     "harmonic_features",
     "ConvBlock",
     "ConvMixer",

@@ -171,3 +171,18 @@ class PoseEncoder(nn.Module):
                 embed = embed.to(self.embed_dtype).to(x.dtype)
             y = self.embed_mlp(embed)
         return self.channelUpscaling(y[..., None])  # (B, T, E, C)
+
+
+def ConvEncoder(dimPosIn: int, dimPosEmb: int, conv_nChan: int = 1,
+                dtype=None) -> PoseEncoder:
+    """The working form of the reference's ``ConvEncoder``
+    (conv_mixer/encoding/conv_encoder.py:4-30), as the JAX package builds
+    it. The reference module is dead code and fails on construction (no
+    ``super().__init__()``, :5-13); its intent is a ``Conv2d(1, dimPosEmb,
+    kernel=(1, dimPosIn))`` pose embedding and PoseEncoder's
+    ``Linear(1, conv_nChan)`` channel upscaling. A stride-1 conv whose
+    kernel spans every feature is a Linear over the features, so this is
+    ``PoseEncoder`` with no harmonics."""
+    return PoseEncoder(dimPosIn=dimPosIn, dimPosEmb=dimPosEmb,
+                       conv_nChan=conv_nChan, n_harmonic_functions=0,
+                       dtype=dtype)

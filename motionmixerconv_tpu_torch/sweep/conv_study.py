@@ -42,8 +42,10 @@ def add_sweep_args(parser) -> None:
     stay in lockstep."""
     parser.add_argument("--n_jobs", default=1, type=int,
                         help="concurrent trials on a thread pool "
-                             "(optuna's n_jobs; trials overlap host work "
-                             "with device execution)")
+                             "(optuna's n_jobs); on one H100 two concurrent "
+                             "trials took 1.003-1.037 of the same trials "
+                             "run in turn (PERF.md section 5), so it gains "
+                             "nothing on one card")
     parser.add_argument("--spread_devices", action="store_true",
                         help="pin trial i to CUDA device i %% N - one sweep "
                              "fans out over every visible card")

@@ -202,13 +202,16 @@ class Trainer:
         return loss
 
     def _epoch_batches(self, corpus: WindowedCorpus, batch_size: int,
-                       seeds: Sequence[int]):
+                       seeds: Sequence[int], orders=None):
         """(len(seeds), n_batches, B) starts and weights of the shuffled
-        epochs, copied to the device at once."""
+        epochs, copied to the device at once. ``orders`` (one window
+        permutation or None per epoch) replaces an epoch's shuffle: the
+        order reaches a captured step only through these device buffers,
+        which every replay reads."""
         all_s, all_w = [], []
-        for seed in seeds:
+        for seed, order in zip(seeds, orders or [None] * len(seeds)):
             s, w = zip(*batch_starts(corpus, batch_size, shuffle=True,
-                                     seed=seed))
+                                     seed=seed, order=order))
             all_s.append(np.stack(s))
             all_w.append(np.stack(w))
         return (self._to_device(np.stack(all_s), torch.long),
@@ -249,13 +252,15 @@ class Trainer:
         return sums
 
     def train_epoch(self, corpus: WindowedCorpus, frames: torch.Tensor,
-                    batch_size: int, seed: int, scan: bool = True) -> float:
+                    batch_size: int, seed: int, scan: bool = True,
+                    order: Optional[np.ndarray] = None) -> float:
         """One epoch over the windows, shuffled by ``seed``; returns the
         sample-weighted mean train loss (train_mixer_h36m.py:195-197), the
         epoch's one host read. ``scan`` (on a CUDA device) replays a
         captured step per batch, the JAX scan's counterpart; ``scan=False``
-        launches each step op by op."""
-        starts, w = self._epoch_batches(corpus, batch_size, [seed])
+        launches each step op by op. ``order`` replaces the shuffle with an
+        explicit window permutation (the lockstep parity runs)."""
+        starts, w = self._epoch_batches(corpus, batch_size, [seed], [order])
         total, n = self._train_sums(frames, starts[0], w[0], scan=scan).tolist()
         return total / max(n, 1.0)
 

@@ -93,7 +93,21 @@ and B4 against their plain forwards and float64, [25] ``make_cmu_corpus``
 -> ``CMUDataset`` (xyz) -> graph-replayed training steps of an MlpMixer
 at the CMU width -> served through B4 against its plain forward and
 float64 (launch counts reset just before 24's and 25's paths and read just
-after their serving). Then the whole run's seconds, one JSON line with every kernel's
+after their serving), [26] the data-parallel mesh: (a) one NCCL rank a
+card (``parallel.launch``) trains the flagship with the fused encoder
+through the mesh Trainer on graphs (collectives captured), evaluates and
+runs 2 fused epochs, held to ``mesh=None`` from the same init at 1e-6
+relative, B1 on the device at least once a train step; (b) two gloo ranks
+on the card through every stanza of ``parallel/dryrun.py`` at the
+flagship widths; (c) ``Predictor(mesh=)`` over two replicas on the card,
+bulk batches of 5 and 257 rows against the plain forward, B = 128 through
+B2 (the NCCL-trained flagship) and B3 (the gloo-trained BatchNorm model)
+against float64, [27] the bf16 compute dtype: the flagship's bf16
+forward against its float32 one (0.05 relative), 20 graph-replayed bf16
+and float32 train steps timed in one call, and a bf16 MlpMixer's weights
+served through B4 against its float32 plain forward (launch counts reset
+just before each of 26's and 27's paths and read just after its serving).
+Then the whole run's seconds, one JSON line with every kernel's
 numbers, the card's name and power limit, and the result line. Any failure exits non-zero; with
 no CUDA device, or with the port's package missing beside this script, it
 exits at once and prints no result.
@@ -214,6 +228,16 @@ STUDY_GRID = tuple((kh, kw) for kh in (1, 5, 9) for kw in range(1, 30, 4))
 CMU_FRAMES = 600
 CMU_STEPS = 20
 CMU_EPOCHS = 2
+# phases 26-27: the data-parallel mesh (one NCCL rank a card; two gloo
+# ranks on one card; Predictor(mesh=) over two replicas on one card) and
+# the bf16 compute dtype
+MESH_BATCH = 50      # a rank's rows of a global batch
+MESH_STEPS = 20      # batches of the NCCL epoch, the last ragged
+MESH_GROUPS = 15     # the grouped evaluation's groups (H36M's actions)
+TOL_MESH = 1e-6      # NCCL mesh against mesh=None, relative; bit-identical expected
+MESH_BULK = (5, 257)  # Predictor(mesh=) bulk batches: 3 * 2 - 1 and 257
+TOL_BF16 = 0.05      # bf16 forward against float32, relative (JAX's bound)
+BF16_STEPS = 20      # graph-replayed steps a timing window
 DEVICE = "cuda:0"  # the one card the script needs
 # H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores, HBM3
 PEAK_F32_FLOPS = 67e12
@@ -2333,6 +2357,286 @@ def cmu_path(torch, np, dev, card, work, counters) -> dict:
             "float64": f64, "times": times}
 
 
+def nccl_mesh_rank(mesh, cfg: dict) -> dict:
+    """Phase 26a on one NCCL rank: the flagship with the fused encoder,
+    dropout off, cuDNN deterministic, trains through the mesh Trainer on
+    graphs (its collectives captured) one epoch of MESH_STEPS global
+    batches (the last ragged), then ``evaluate_grouped``, then 2 fused
+    epochs; rank 0 runs the same from the same init with ``mesh=None``.
+    B1's launches counted on the device around the epoch, the Python
+    counters around the whole path."""
+    import numpy as np
+    import torch
+    from motionmixerconv_tpu_torch.data import WindowedCorpus
+    from motionmixerconv_tpu_torch.data.constants import H36M_DIM_USED_XYZ
+    from motionmixerconv_tpu_torch.models import ConvMixer
+    from motionmixerconv_tpu_torch.ops import harmonic
+    from motionmixerconv_tpu_torch.train import Trainer, make_optimizer
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    dev = mesh.device
+    batch = MESH_BATCH * mesh.size
+    rs = np.random.RandomState(SEED + 26)
+    frames_h = (rs.randn(4000, 96) * 300.0).astype(np.float32)  # mm scale
+    n_win = MESH_STEPS * batch - 2
+    corpus = WindowedCorpus(frames_h, rs.randint(0, 4000 - 35, n_win)
+                            .astype(np.int64), 35)
+    gids = np.arange(n_win) % MESH_GROUPS
+    frames = torch.from_numpy(frames_h).to(dev)
+
+    def run(m):
+        model = ConvMixer(**cfg, generator=torch.Generator().manual_seed(
+            SEED + 26)).to(dev)
+        tr = Trainer(model, make_optimizer(model.parameters(), lr=1e-3,
+                                           steps_per_epoch=MESH_STEPS),
+                     loss_type="mpjpe", dim_used=H36M_DIM_USED_XYZ,
+                     input_n=10, output_n=25, input_scale=1e-3, mesh=m)
+        for c in (harmonic.LAUNCHES, harmonic.LAUNCHES_BWD):
+            c.reset()
+        before = harmonic.device_launches()
+        epoch = tr.train_epoch(corpus, frames, batch, seed=0)
+        after = harmonic.device_launches()
+        grouped = tr.evaluate_grouped(frames, corpus.window_starts, gids,
+                                      MESH_GROUPS, batch, "h36m_xyz")
+        fused = tr.run_epochs_fused(corpus, frames, batch, [1, 2], corpus,
+                                    frames, frames, corpus.window_starts,
+                                    gids, MESH_GROUPS, "h36m_xyz", batch)
+        torch.cuda.synchronize()
+        params = torch.cat([p.detach().reshape(-1) for p in
+                            tr.model.parameters()]).cpu().numpy()
+        t0 = time.perf_counter()  # one more epoch, timed: replays only
+        tr.train_epoch(corpus, frames, batch, seed=3)
+        step_ms = (time.perf_counter() - t0) / MESH_STEPS * 1e3
+        return {
+            "step_ms": step_ms,
+            "train": np.concatenate([[epoch], fused["train"]]),
+            "eval": np.concatenate([*grouped, fused["val"],
+                                    fused["m1"].ravel(), fused["m2"].ravel(),
+                                    fused["n"].ravel()]),
+            "params": params,
+            "b1_epoch": [a - b for a, b in zip(after, before)],
+            "launches": {"harmonic_dense_fwd": harmonic.LAUNCHES.value,
+                         "harmonic_dense_bwd": harmonic.LAUNCHES_BWD.value},
+            "graphs": sum(r.graph is not None for r in tr._graphs.values()),
+            "state_dict": {k: v.detach().cpu() for k, v in
+                           tr.model.state_dict().items()}}
+
+    out = {"mesh": run(mesh), "size": mesh.size, "backend": mesh.backend}
+    if mesh.rank == 0:
+        out["twin"] = run(None)
+    return out
+
+
+def mesh_path(torch, np, dev, card, counters) -> dict:
+    """Phase 26: (a) one NCCL rank a visible card (``nccl_mesh_rank``)
+    against ``mesh=None`` at TOL_MESH, B1 on the device at least once a
+    train step; (b) two gloo ranks on one card through every stanza of
+    ``parallel/dryrun.py`` at the flagship widths; (c) ``Predictor(mesh=
+    make_mesh([card, card]))``: bulk batches of MESH_BULK rows against the
+    plain forward, B <= 128 through B2 (the NCCL-trained flagship) and B3
+    (the gloo-trained BatchNorm model), each core against float64. The
+    Python counters are reset just before (a) and read just after (c)'s
+    serving, (a)'s ranks' own counts added."""
+    from motionmixerconv_tpu_torch.models import ConvMixer
+    from motionmixerconv_tpu_torch.ops import conv_mixer, conv_mixer_mc
+    from motionmixerconv_tpu_torch.parallel import dryrun, launch, make_mesh
+    from motionmixerconv_tpu_torch.serving import Predictor
+
+    for c in counters.values():
+        c.reset()
+    secs = {}
+    t0 = time.perf_counter()
+    n_cards = torch.cuda.device_count()
+    flag_cfg = dict(FLAGSHIP, regularization=0.0, encoder_fused=True)
+    ranks = launch(nccl_mesh_rank, n_cards, "nccl", "cuda", args=(flag_cfg,))
+    secs["a"] = time.perf_counter() - t0
+    r0 = ranks[0]
+    mesh_r, twin = r0["mesh"], r0["twin"]
+    parts = ("train", "eval", "params")
+    rel = {k: float(np.max(np.abs(mesh_r[k] - twin[k]))
+                    / max(float(np.max(np.abs(twin[k]))), 1e-30))
+           for k in parts}
+    bitwise = {k: bool(np.array_equal(mesh_r[k], twin[k])) for k in parts}
+    b1_per_step = [n / MESH_STEPS for n in mesh_r["b1_epoch"]]
+    say(f"[26 mesh a] {card} | {n_cards} NCCL rank(s), one a card, flagship "
+        f"with the fused encoder, dropout off, deterministic cuDNN: "
+        f"{MESH_STEPS} steps of {MESH_BATCH} rows a rank on "
+        f"{mesh_r['graphs']} captured graphs (collectives inside), "
+        f"evaluate_grouped, 2 fused epochs | against mesh=None: relative "
+        f"max diff (bit-identical?) " + ", ".join(
+            f"{k} {rel[k]:.3e} ({bitwise[k]})" for k in parts)
+        + f" (tol {TOL_MESH:g}; the evaluations' index_add_ sums in any "
+        f"order) | B1 device "
+        f"launches a train step (fwd, dW) {b1_per_step} | step ms (host "
+        f"clock over a replayed epoch ending in its host read) mesh "
+        f"{mesh_r['step_ms']:.3f}, mesh=None {twin['step_ms']:.3f} | "
+        f"{secs['a']:.1f} s (the spawn included)")
+    if not max(rel.values()) <= TOL_MESH:
+        fail(f"NCCL mesh against mesh=None: {rel}")
+    if min(b1_per_step) < 1 or mesh_r["graphs"] < 1:
+        fail(f"NCCL mesh: B1 {b1_per_step} a step, {mesh_r['graphs']} graphs")
+
+    t0 = time.perf_counter()
+    lines = []
+    try:
+        dry = dryrun.run(2, "gloo", DEVICE, say=lines.append)
+    except AssertionError as e:
+        fail(f"the gloo dry run on the card: {e}")
+    secs["b"] = time.perf_counter() - t0
+    say(f"[26 mesh b] {card} | 2 gloo ranks on {DEVICE}, "
+        f"parallel/dryrun.py at the flagship widths: " + " | ".join(lines)
+        + f" | {secs['b']:.1f} s")
+
+    t0 = time.perf_counter()
+    spread = make_mesh([DEVICE, DEVICE])
+    gen = torch.Generator().manual_seed(SEED + 27)
+    x = torch.randn(max(MESH_BULK), 10, 66, generator=gen) * 0.5
+    served = {}
+    flag = Predictor(ConvMixer(**flag_cfg), mesh_r["state_dict"], device=dev,
+                     mesh=spread)
+    bulk0 = Predictor(ConvMixer(**flag_cfg), mesh_r["state_dict"],
+                      device=dev, mesh=spread, fused_max_batch=0)
+    bn = Predictor(ConvMixer(**dryrun.BN_MODEL),
+                   dry["results"][0]["bn"]["mesh"]["state_dict"],
+                   device=dev, mesh=spread)
+    if not isinstance(flag._fused, conv_mixer.FusedConvMixer) or not \
+            isinstance(bn._fused, conv_mixer_mc.FusedConvMixerMC):
+        fail(f"Predictor(mesh=) routes: {flag.fused_fallback_reason}, "
+             f"{bn.fused_fallback_reason}")
+    bn0 = Predictor(ConvMixer(**dryrun.BN_MODEL),
+                    dry["results"][0]["bn"]["mesh"]["state_dict"],
+                    device=dev, mesh=spread, fused_max_batch=0)
+    with torch.no_grad():
+        for tag, p, p0 in (("flagship", flag, bulk0), ("batchnorm", bn, bn0)):
+            for b in (*MESH_BULK, 128):
+                # bulk batches on the replicas (the small one with no fused
+                # window), B = 128 through the fused kernel
+                pred = (p0 if b < 128 else p).predict(x[:b])
+                if pred.shape != (b, p.model.out_nTP, 66) \
+                        or not torch.isfinite(pred).all():
+                    fail(f"Predictor(mesh=) {tag} b={b}: bad answer")
+                served[f"{tag} b={b}"] = served_err(
+                    torch, pred, p.model(x[:b].to(dev)))
+    torch.cuda.synchronize()
+    launches = {k: c.value for k, c in counters.items()}
+    for r in ranks:
+        for k, v in r["mesh"]["launches"].items():
+            launches[k] += v
+    secs["c"] = time.perf_counter() - t0
+    # comparisons, not on the path
+    f64 = {"B2": core_against_float64(torch, flag._fused, x.to(dev),
+                                      (1, 7, 128)),
+           "B3": core_against_float64(torch, bn._fused, x.to(dev), (1, 128))}
+    say(f"[26 mesh c] {card} | Predictor(mesh=[{DEVICE}, {DEVICE}]): bulk "
+        f"and B <= 128 against the plain forward, max abs err / max(1, "
+        "max|out|): " + ", ".join(f"{k} {v:.3e}" for k, v in served.items())
+        + f" (tol {TOL_E2E:g}) | B2 (NCCL-trained flagship) "
+        f"{fmt_f64(f64['B2'])}; B3 (gloo-trained BatchNorm model) "
+        f"{fmt_f64(f64['B3'])} against float64 (tol {TOL_B2:g}) | launches "
+        f"on the path {launches} | {secs['c']:.1f} s")
+    if not max(served.values()) <= TOL_E2E:
+        fail(f"Predictor(mesh=) against the plain forward: {served}")
+    for k in ("conv_mixer_fused", "conv_mixer_mc", "harmonic_dense_fwd",
+              "harmonic_dense_bwd"):
+        if launches[k] < 1:
+            fail(f"phase 26: kernel {k} was not launched on the path")
+    return {"launches": launches, "seconds": secs, "rel": rel,
+            "bitwise": bitwise, "step_ms": (mesh_r["step_ms"],
+                                            twin["step_ms"]), "b1_per_step": b1_per_step,
+            "diffs": dry["diffs"], "served": served, "float64": f64}
+
+
+def bf16_path(torch, np, dev, card, counters) -> dict:
+    """Phase 27: the flagship with the plain encoder at dtype bf16 against
+    its float32 forward (TOL_BF16); BF16_STEPS graph-replayed training
+    steps of each at batch TRAIN_BATCH, float32 then bf16, timed in this
+    one call (``profile_train``); the AMASS MlpMixer at dtype bf16 served
+    through B4 (its float32 weights) against its float32 plain forward.
+    The Python counters reset just before and read just after the
+    serving."""
+    from motionmixerconv_tpu_torch.data.constants import H36M_DIM_USED_XYZ
+    from motionmixerconv_tpu_torch.models import ConvMixer, MlpMixer
+    from motionmixerconv_tpu_torch.ops import mlp_mixer
+    from motionmixerconv_tpu_torch.serving import Predictor
+    from motionmixerconv_tpu_torch.train import Trainer, make_optimizer
+
+    t0 = time.perf_counter()
+    for c in counters.values():
+        c.reset()
+    bf16 = torch.bfloat16
+    gen = torch.Generator().manual_seed(SEED)
+    f32 = ConvMixer(**FLAGSHIP, generator=gen).to(dev).eval()
+    m16 = ConvMixer(**FLAGSHIP, dtype=bf16).to(dev).eval()
+    m16.load_state_dict(f32.state_dict())
+    x = (torch.randn(BULK_ROWS, 10, 66, generator=gen) * 0.5).to(dev)
+    with torch.no_grad():
+        y32, y16 = f32(x), m16(x)
+    fwd_rel = float((y16.float() - y32).abs().max() / y32.abs().max())
+    if y16.dtype != bf16 or not fwd_rel <= TOL_BF16:
+        fail(f"bf16 flagship forward: dtype {y16.dtype}, {fwd_rel:.3e} from "
+             f"float32 (tol {TOL_BF16:g})")
+
+    frames, starts, w = random_batches(torch, dev, SEED + 27, 5000, 96, 300.0,
+                                       35, 3 * BF16_STEPS, TRAIN_BATCH)
+    times, losses = {}, {}
+    for tag, dtype in (("float32", None), ("bf16", bf16)):
+        model = ConvMixer(**FLAGSHIP, dtype=dtype, generator=torch.Generator()
+                          .manual_seed(SEED + 27)).to(dev)
+        tr = Trainer(model, make_optimizer(model.parameters(), lr=1e-3),
+                     loss_type="mpjpe", dim_used=H36M_DIM_USED_XYZ,
+                     input_n=10, output_n=25, input_scale=1e-3)
+        got = []
+
+        def run(lo, hi):
+            sums = tr._train_sums(frames, starts[lo:hi], w[lo:hi], None,
+                                  True).cpu()
+            got.append(float(sums[0] / sums[1]))
+
+        times[tag] = profile_train(torch, run, BF16_STEPS, TRAIN_BATCH)
+        losses[tag] = got
+        if not any(r.graph is not None for r in tr._graphs.values()):
+            fail(f"{tag} training replayed no captured step graph")
+    if not all(np.isfinite(v).all() for v in losses.values()):
+        fail(f"bf16 training losses: {losses}")
+
+    am32 = MlpMixer(**AMASS_MLP, generator=torch.Generator().manual_seed(
+        SEED + 28)).to(dev).eval()
+    am16 = MlpMixer(**AMASS_MLP, dtype=bf16)
+    served = Predictor(am16, am32.state_dict(), device=dev)
+    if not isinstance(served._fused, mlp_mixer.FusedMlpMixer):
+        fail(f"the bf16 MlpMixer is not served by B4: "
+             f"{served.fused_fallback_reason}")
+    xa = torch.randn(128, 10, 54, generator=gen) * 0.3
+    with torch.no_grad():
+        got = served.predict(xa)
+        b4_err = served_err(torch, got, am32(xa.to(dev)))
+        b4_vs_bf16 = float((got - served.model(xa.to(dev)).float()).abs()
+                           .max() / got.abs().max())
+    torch.cuda.synchronize()
+    launches = {k: c.value for k, c in counters.items()}
+    f64 = b4_against_float64(torch, served._fused, xa.to(dev), (1, 128))
+    seconds = time.perf_counter() - t0
+    ratio = times["bf16"]["step_ms"] / times["float32"]["step_ms"]
+    say(f"[27 bf16] {card} | flagship (plain encoder) at dtype bf16 against "
+        f"float32, b={BULK_ROWS}: {fwd_rel:.3e} relative (tol {TOL_BF16:g}) "
+        f"| {BF16_STEPS} graph-replayed train steps at batch {TRAIN_BATCH}, "
+        "dropout 0.1, plain encoder, timed in this call: "
+        + " | ".join(f"{tag}: {fmt_times({True: t})}"
+                     for tag, t in times.items())
+        + f" | bf16 / float32 step ms {ratio:.3f} | losses (3 windows) "
+        f"{ {k: [round(v, 3) for v in vs] for k, vs in losses.items()} } | "
+        f"bf16 AMASS MlpMixer's weights through B4 against its float32 plain "
+        f"forward {b4_err:.3e} (tol {TOL_E2E:g}), against its own bf16 "
+        f"forward {b4_vs_bf16:.3e}; B4 against float64 {fmt_f64(f64)} | "
+        f"launches on the path {launches} | phase {seconds:.1f} s")
+    if not b4_err <= TOL_E2E or launches["mlp_mixer_fused"] < 1:
+        fail(f"bf16 MlpMixer through B4: err {b4_err:.3e}, {launches}")
+    return {"launches": launches, "seconds": seconds, "fwd_rel": fwd_rel,
+            "times": times, "b4_err": b4_err, "float64": f64,
+            "ratio": ratio}
+
+
 def main() -> None:
     t_run = time.perf_counter()
     import numpy as np
@@ -3080,6 +3384,11 @@ def main() -> None:
     parity = parity_paths(torch, np, dev, card, work, counters)
     cmu = cmu_path(torch, np, dev, card, work, counters)
 
+    # [26] the data-parallel mesh: NCCL ranks, gloo ranks, Predictor(mesh=);
+    # [27] the bf16 compute dtype
+    mesh = mesh_path(torch, np, dev, card, counters)
+    bf16 = bf16_path(torch, np, dev, card, counters)
+
     def timed(v, **extra):
         """A times entry of b1_times, b2_times or b4_times as the kernels
         line's keys."""
@@ -3104,7 +3413,8 @@ def main() -> None:
          "new_shapes": {f"{t} B={b}": timed(
              v, max_abs_err=new["b2"][t][b]["err"])
              for t, c in new["b2_times"].items() for b, v in c.items()},
-         "parity_trained_against_float64": parity["served"]["h36m"]},
+         "parity_trained_against_float64": parity["served"]["h36m"],
+         "mesh_trained_against_float64": mesh["float64"]["B2"]},
         {"name": "harmonic_dense_fwd", "route": "cuda",
          "source": "motionmixerconv_tpu_torch/csrc/harmonic_dense.cu",
          "replaces": "motionmixerconv_tpu/ops/pallas_harmonic.py:54",
@@ -3120,6 +3430,7 @@ def main() -> None:
              for r, t in fwd_t.items()},
          "angle_device_launches_per_train_step":
              paths["angle"]["b1_train"][B1_IN_RUN[0]] / paths["angle"]["steps"],
+         "mesh_nccl_device_launches_per_train_step": mesh["b1_per_step"][0],
          "parity_device_launches_per_train_step": {
              run: parity["b1"][run][B1_IN_RUN[0]] / parity["steps"]
              for run in ("h36m_fused", "h36m_sync_fused")},
@@ -3144,6 +3455,7 @@ def main() -> None:
              for r in B1_BWD_ROWS},
          "angle_device_launches_per_train_step":
              paths["angle"]["b1_train"][B1_IN_RUN[1]] / paths["angle"]["steps"],
+         "mesh_nccl_device_launches_per_train_step": mesh["b1_per_step"][1],
          "parity_device_launches_per_train_step": {
              run: parity["b1"][run][B1_IN_RUN[1]] / parity["steps"]
              for run in ("h36m_fused", "h36m_sync_fused")},
@@ -3162,6 +3474,7 @@ def main() -> None:
          "bound_by": b3_t[("autoregressive", 128)][2][1], "library_ms": None,
          "conv_study_grid_max_abs_err": studies["conv_study"]["grid_err"],
          "parity_trained_against_float64": parity["served"]["ar"],
+         "mesh_trained_against_float64": mesh["float64"]["B3"],
          "study": {"ms": b3_t[("study", 128)][0],
                    "plain_ms": b3_t[("study", 128)][1],
                    "bound_ms": b3_t[("study", 128)][2][0]},
@@ -3186,7 +3499,8 @@ def main() -> None:
                 for b, v in interchange["b4_times"].items()},
              **{f"cmu B={b}": timed(v, err_against_float64=cmu["float64"][b][0])
                 for b, v in cmu["times"].items()}},
-         "parity_trained_against_float64": parity["served"]["amass"]},
+         "parity_trained_against_float64": parity["served"]["amass"],
+         "bf16_model_served_max_abs_err": bf16["b4_err"]},
     ]
     for k in kernels:
         k["launches_by_path"] = {"serve": launches.get(k["name"], 0),
@@ -3201,7 +3515,9 @@ def main() -> None:
                                     for tag in ("conv_study", "mlp_study",
                                                 "autoreg_study")},
                                  "parity": parity["launches"][k["name"]],
-                                 "cmu": cmu["launches"][k["name"]]}
+                                 "cmu": cmu["launches"][k["name"]],
+                                 "mesh": mesh["launches"][k["name"]],
+                                 "bf16": bf16["launches"][k["name"]]}
     say(f"[run] {time.perf_counter() - t_run:.1f} s, the kernels' build "
         f"included | phases 21-23: {interchange['seconds']:.1f} s "
         f"interchange, conv_study calls "
@@ -3210,7 +3526,10 @@ def main() -> None:
         f"the sequential reference), mlp_study "
         f"{studies['mlp_study']['wall']:.1f} s, autoreg_study "
         f"{studies['autoreg_study']['wall']:.1f} s | phase 24 (parity) "
-        f"{parity['seconds']:.1f} s, phase 25 (cmu) {cmu['seconds']:.1f} s")
+        f"{parity['seconds']:.1f} s, phase 25 (cmu) {cmu['seconds']:.1f} s"
+        f" | phase 26 (mesh) a {mesh['seconds']['a']:.1f} s, b "
+        f"{mesh['seconds']['b']:.1f} s, c {mesh['seconds']['c']:.1f} s, "
+        f"phase 27 (bf16) {bf16['seconds']:.1f} s")
     say(json.dumps({"kernels": kernels}))
     say(card)
     say(json.dumps({"ok": True, "device": {

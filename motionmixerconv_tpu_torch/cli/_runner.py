@@ -267,6 +267,8 @@ def _train_and_evaluate(
     batch_size_test = test_batch_size or args.batch_size_test
 
     def save(epoch: int) -> None:
+        if not trainer.is_writer:  # a mesh's rank 0 writes, once
+            return
         save_checkpoint(os.path.join(log_dir, STATE_FILE), trainer.model,
                         trainer.optimizer, epoch, meta=vars(args),
                         weights_path=os.path.join(log_dir, WEIGHTS_FILE))

@@ -16,6 +16,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from .common import Linear
+
 
 def _double(s, c):
     """One normalized angle-doubling step: (sin a, cos a) -> (sin 2a, cos 2a).
@@ -77,6 +79,9 @@ class PoseEncoder(nn.Module):
     those of the plain module, so checkpoints are interchangeable.
     ``precomputed=True`` takes the already-computed (B, T, 2nD) embedding.
     ``embed_dtype`` is the storage dtype of the materialized embedding.
+    ``dtype`` is the compute dtype (flax's meaning, ``models/common.py``):
+    the harmonics run in the input's float32 and the two projections in
+    ``dtype``; the fused kernel is float32 only.
     """
 
     def __init__(self, dimPosIn: int, dimPosEmb: int, conv_nChan: int = 1,
@@ -85,10 +90,6 @@ class PoseEncoder(nn.Module):
                  harmonic_impl: str = "direct",
                  embed_dtype: Optional[torch.dtype] = None):
         super().__init__()
-        if dtype is not None:
-            raise NotImplementedError(
-                "compute dtype (bf16 mixed precision) is not ported yet; "
-                "the port runs float32 (ROADMAP queue A item 21)")
         nh = n_harmonic_functions
         if harmonic_impl != "direct" and precomputed and nh > 0:
             raise ValueError(
@@ -100,6 +101,10 @@ class PoseEncoder(nn.Module):
                 "fused=True does not combine with the corpus-level embedding "
                 "cache: the fused kernel computes the harmonics itself from "
                 "the RAW pose input")
+        if fused and nh > 0 and dtype is not None:
+            raise ValueError(
+                "fused=True is f32-only (the harmonic kernel accumulates in "
+                "f32); drop dtype or drop fused")
         if embed_dtype is not None and nh > 0 and (fused or precomputed):
             raise ValueError(
                 "embed_dtype only applies to the per-step materialized "
@@ -114,13 +119,14 @@ class PoseEncoder(nn.Module):
         self.precomputed = precomputed
         self.harmonic_impl = harmonic_impl
         self.embed_dtype = embed_dtype
+        self.dtype = dtype
         if nh > 0:
             self.register_buffer("frequencies", harmonic_frequencies(nh, omega0))
             dim_harmonic = nh * dimPosIn * 2
         else:
             dim_harmonic = dimPosIn
-        self.embed_mlp = nn.Linear(dim_harmonic, dimPosEmb)
-        self.channelUpscaling = nn.Linear(1, conv_nChan)
+        self.embed_mlp = Linear(dim_harmonic, dimPosEmb, compute_dtype=dtype)
+        self.channelUpscaling = Linear(1, conv_nChan, compute_dtype=dtype)
         self._imajor = None      # embed_mlp.weight in the kernel's layout
         self._imajor_key = None  # (device, data_ptr, version) it came from
 

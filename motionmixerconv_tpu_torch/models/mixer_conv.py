@@ -23,7 +23,8 @@ import torch
 from torch import nn
 
 from ..ops.activations import gelu_exact, get_activation
-from .common import Regularization, layer_norm, torch_default_init_
+from .common import (Conv2d, Linear, Regularization, layer_norm,
+                     torch_default_init_)
 from .encoding import PoseEncoder
 
 Pad = Union[str, Tuple[int, int], None]
@@ -41,13 +42,14 @@ class MultiChanSELayer(nn.Module):
     """SE over the time axis of (B, C, T, E): squeeze by avg/max over (C, E),
     excitation Linear(T -> T//r) -> ReLU -> Linear -> sigmoid, no biases."""
 
-    def __init__(self, in_nTP: int, r: int = 4, use_max_pooling: bool = False):
+    def __init__(self, in_nTP: int, r: int = 4, use_max_pooling: bool = False,
+                 dtype=None):
         super().__init__()
         self.use_max_pooling = use_max_pooling
         self.excitationBlock = nn.Sequential(
-            nn.Linear(in_nTP, in_nTP // r, bias=False),
+            Linear(in_nTP, in_nTP // r, bias=False, compute_dtype=dtype),
             nn.ReLU(),
-            nn.Linear(in_nTP // r, in_nTP, bias=False),
+            Linear(in_nTP // r, in_nTP, bias=False, compute_dtype=dtype),
             nn.Sigmoid(),
         )
 
@@ -65,12 +67,13 @@ class ConvBlock(nn.Module):
 
     def __init__(self, conv_nChan: int, kernel_shape=(1, 3), stride=(1, 1),
                  padding: Pad = "same", activation: str = "gelu",
-                 regularization: float = 0.0):
+                 regularization: float = 0.0, dtype=None):
         super().__init__()
-        self.conv = nn.Conv2d(conv_nChan, conv_nChan, tuple(kernel_shape),
-                              stride=tuple(stride), padding=_pad_arg(padding))
+        self.conv = Conv2d(conv_nChan, conv_nChan, tuple(kernel_shape),
+                           stride=tuple(stride), padding=_pad_arg(padding),
+                           compute_dtype=dtype)
         self.act = get_activation(activation)
-        self.reg = Regularization(regularization, conv_nChan)
+        self.reg = Regularization(regularization, conv_nChan, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.reg(self.act(self.conv(x)))
@@ -85,7 +88,7 @@ class ConvMixerBlock(nn.Module):
                  conv2_kernel_shape=None, conv2_stride=None,
                  conv2_padding: Pad = None, activation: str = "gelu",
                  regularization: float = 0.0, use_se: bool = True,
-                 r_se: int = 4, use_max_pooling: bool = False):
+                 r_se: int = 4, use_max_pooling: bool = False, dtype=None):
         super().__init__()
         if mode_conv not in ("once", "twice"):
             raise ValueError(
@@ -95,10 +98,10 @@ class ConvMixerBlock(nn.Module):
         self.conv1 = ConvBlock(
             conv_nChan, conv1_kernel_shape, conv1_stride or (1, 1),
             conv1_padding if conv1_padding is not None else "same",
-            activation, regularization)
+            activation, regularization, dtype)
         if use_se:
-            self.se = MultiChanSELayer(in_nTP, r_se, use_max_pooling)
-        self.LN1 = layer_norm(dimPosEmb)
+            self.se = MultiChanSELayer(in_nTP, r_se, use_max_pooling, dtype)
+        self.LN1 = layer_norm(dimPosEmb, dtype)
         if mode_conv == "twice":
             k2 = conv2_kernel_shape or (
                 min(conv1_kernel_shape[1], in_nTP),
@@ -107,10 +110,10 @@ class ConvMixerBlock(nn.Module):
             self.conv2 = ConvBlock(
                 conv_nChan, k2, conv2_stride or (1, 1),
                 conv2_padding if conv2_padding is not None else "same",
-                activation, regularization)
+                activation, regularization, dtype)
             if use_se:
                 self.se2 = self.se  # the reference's alias
-            self.LN2 = layer_norm(dimPosEmb)
+            self.LN2 = layer_norm(dimPosEmb, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self.conv1(self.LN1(x))
@@ -130,7 +133,9 @@ class ConvMixer(nn.Module):
     """(B, in_nTP, dimPosIn) -> (B, out_nTP, dimPosOut).
 
     ``generator`` seeds the torch-default init; without it the global RNG
-    draws. ``dtype`` (compute dtype) is not ported yet and raises.
+    draws. ``dtype`` is the compute dtype, with flax's meaning
+    (``models/common.py``): parameters stay float32 and the output is in
+    ``dtype``; it does not combine with ``encoder_fused``.
     """
 
     def __init__(self, num_blocks: int, dimPosIn: int, dimPosEmb: int,
@@ -168,6 +173,7 @@ class ConvMixer(nn.Module):
         self.encoder_n_harmonic_functions = encoder_n_harmonic_functions
         self.encoder_omega0 = encoder_omega0
         self.encoder_fused = encoder_fused
+        self.dtype = dtype
         self.encoder = PoseEncoder(
             dimPosIn, dimPosEmb, conv_nChan,
             n_harmonic_functions=encoder_n_harmonic_functions,
@@ -185,14 +191,15 @@ class ConvMixer(nn.Module):
                 conv2_stride=conv2_stride, conv2_padding=conv2_padding,
                 activation=activation, regularization=regularization,
                 use_se=use_se, r_se=r_se, use_max_pooling=use_max_pooling,
+                dtype=dtype,
             )
             for _ in range(num_blocks)
         ])
-        self.LN = layer_norm(dimPosEmb)
+        self.LN = layer_norm(dimPosEmb, dtype)
         # time upsample over time-as-channels, then the channel projection
-        self.conv_out = nn.Conv2d(in_nTP, out_nTP, 1)
-        self.project_channels = nn.Conv2d(conv_nChan, 1, 1)
-        self.fc_out = nn.Linear(dimPosEmb, dimPosOut)
+        self.conv_out = Conv2d(in_nTP, out_nTP, 1, compute_dtype=dtype)
+        self.project_channels = Conv2d(conv_nChan, 1, 1, compute_dtype=dtype)
+        self.fc_out = Linear(dimPosEmb, dimPosOut, compute_dtype=dtype)
         torch_default_init_(self, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

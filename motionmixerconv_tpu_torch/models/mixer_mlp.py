@@ -28,7 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.activations import get_activation
-from .common import Regularization, layer_norm, torch_default_init_
+from .common import Linear, Regularization, cast, layer_norm, torch_default_init_
 
 
 class SELayer(nn.Module):
@@ -36,13 +36,14 @@ class SELayer(nn.Module):
     mean or max over H, excitation Linear(S -> S//r) -> ReLU -> Linear ->
     sigmoid, no biases."""
 
-    def __init__(self, c: int, r: int = 4, use_max_pooling: bool = False):
+    def __init__(self, c: int, r: int = 4, use_max_pooling: bool = False,
+                 dtype=None):
         super().__init__()
         self.use_max_pooling = use_max_pooling
         self.excitation = nn.Sequential(
-            nn.Linear(c, c // r, bias=False),
+            Linear(c, c // r, bias=False, compute_dtype=dtype),
             nn.ReLU(),
-            nn.Linear(c // r, c, bias=False),
+            Linear(c // r, c, bias=False, compute_dtype=dtype),
             nn.Sigmoid(),
         )
 
@@ -56,13 +57,14 @@ class MlpBlock(nn.Module):
     last axis; a BatchNorm normalises axis 1 (``bn_dim`` channels)."""
 
     def __init__(self, hidden_dim: int, input_dim: int, bn_dim: int,
-                 activation: str = "gelu", regularization: float = 0.0):
+                 activation: str = "gelu", regularization: float = 0.0,
+                 dtype=None):
         super().__init__()
-        self.fc1 = nn.Linear(input_dim, hidden_dim)
-        self.fc2 = nn.Linear(hidden_dim, input_dim)
+        self.fc1 = Linear(input_dim, hidden_dim, compute_dtype=dtype)
+        self.fc2 = Linear(hidden_dim, input_dim, compute_dtype=dtype)
         self.act = get_activation(activation)
-        self.reg1 = Regularization(regularization, bn_dim, bn_dims=1)
-        self.reg2 = Regularization(regularization, bn_dim, bn_dims=1)
+        self.reg1 = Regularization(regularization, bn_dim, 1, dtype)
+        self.reg2 = Regularization(regularization, bn_dim, 1, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.reg2(self.fc2(self.reg1(self.act(self.fc1(x)))))
@@ -75,17 +77,20 @@ class MixerBlock(nn.Module):
     def __init__(self, tokens_mlp_dim: int, channels_mlp_dim: int,
                  seq_len: int, hidden_dim: int, activation: str = "gelu",
                  regularization: float = 0.0, r_se: int = 4,
-                 use_max_pooling: bool = False, use_se: bool = True):
+                 use_max_pooling: bool = False, use_se: bool = True,
+                 dtype=None):
         super().__init__()
         self.use_se = use_se
         self.mlp_block_token_mixing = MlpBlock(
-            tokens_mlp_dim, seq_len, hidden_dim, activation, regularization)
+            tokens_mlp_dim, seq_len, hidden_dim, activation, regularization,
+            dtype)
         self.mlp_block_channel_mixing = MlpBlock(
-            channels_mlp_dim, hidden_dim, seq_len, activation, regularization)
+            channels_mlp_dim, hidden_dim, seq_len, activation, regularization,
+            dtype)
         if use_se:
-            self.se = SELayer(seq_len, r_se, use_max_pooling)
-        self.LN1 = layer_norm(hidden_dim)
-        self.LN2 = layer_norm(hidden_dim)
+            self.se = SELayer(seq_len, r_se, use_max_pooling, dtype)
+        self.LN1 = layer_norm(hidden_dim, dtype)
+        self.LN2 = layer_norm(hidden_dim, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self.mlp_block_token_mixing(self.LN1(x).transpose(1, 2))
@@ -105,14 +110,15 @@ class MixerBlockChannel(nn.Module):
     def __init__(self, channels_mlp_dim: int, seq_len: int, hidden_dim: int,
                  activation: str = "gelu", regularization: float = 0.0,
                  r_se: int = 4, use_max_pooling: bool = False,
-                 use_se: bool = True):
+                 use_se: bool = True, dtype=None):
         super().__init__()
         self.use_se = use_se
         self.mlp_block_channel_mixing = MlpBlock(
-            channels_mlp_dim, hidden_dim, seq_len, activation, regularization)
+            channels_mlp_dim, hidden_dim, seq_len, activation, regularization,
+            dtype)
         if use_se:
-            self.se = SELayer(seq_len, r_se, use_max_pooling)
-        self.LN2 = layer_norm(hidden_dim)
+            self.se = SELayer(seq_len, r_se, use_max_pooling, dtype)
+        self.LN2 = layer_norm(hidden_dim, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x + (self.se(x) if self.use_se else x)
@@ -129,14 +135,15 @@ class MixerBlockToken(nn.Module):
     def __init__(self, tokens_mlp_dim: int, seq_len: int, hidden_dim: int,
                  activation: str = "gelu", regularization: float = 0.0,
                  r_se: int = 4, use_max_pooling: bool = False,
-                 use_se: bool = True):
+                 use_se: bool = True, dtype=None):
         super().__init__()
         self.use_se = use_se
         self.mlp_block_token_mixing = MlpBlock(
-            tokens_mlp_dim, seq_len, hidden_dim, activation, regularization)
+            tokens_mlp_dim, seq_len, hidden_dim, activation, regularization,
+            dtype)
         if use_se:
-            self.se = SELayer(seq_len, r_se, use_max_pooling)
-        self.LN1 = layer_norm(hidden_dim)
+            self.se = SELayer(seq_len, r_se, use_max_pooling, dtype)
+        self.LN1 = layer_norm(hidden_dim, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self.mlp_block_token_mixing(self.LN1(x).transpose(1, 2))
@@ -153,7 +160,9 @@ class MlpMixer(nn.Module):
     ``mlp_block_type`` selects the block: 'channel_only', 'token_only', or
     anything else for the normal block, as in the flax module.
     ``generator`` seeds the torch-default init; without it the global RNG
-    draws. ``dtype`` (compute dtype) is not ported yet and raises.
+    draws. ``dtype`` is the compute dtype, with flax's meaning
+    (``models/common.py``): parameters stay float32 and the output is in
+    ``dtype``.
     """
 
     def __init__(self, num_classes: int, num_blocks: int, hidden_dim: int,
@@ -164,10 +173,7 @@ class MlpMixer(nn.Module):
                  use_max_pooling: bool = False, use_se: bool = False,
                  dtype=None, generator: Optional[torch.Generator] = None):
         super().__init__()
-        if dtype is not None:
-            raise NotImplementedError(
-                "compute dtype (bf16 mixed precision) is not ported yet; "
-                "the port runs float32 (ROADMAP queue A item 21)")
+        self.dtype = dtype
         self.num_classes, self.num_blocks = num_classes, num_blocks
         self.hidden_dim = hidden_dim
         self.tokens_mlp_dim = tokens_mlp_dim
@@ -184,7 +190,7 @@ class MlpMixer(nn.Module):
         common = dict(seq_len=seq_len, hidden_dim=hidden_dim,
                       activation=activation, regularization=regularization,
                       r_se=r_se, use_max_pooling=use_max_pooling,
-                      use_se=use_se)
+                      use_se=use_se, dtype=dtype)
         if mlp_block_type == "channel_only":
             blocks = [MixerBlockChannel(channels_mlp_dim, **common)
                       for _ in range(num_blocks)]
@@ -195,17 +201,20 @@ class MlpMixer(nn.Module):
             blocks = [MixerBlock(tokens_mlp_dim, channels_mlp_dim, **common)
                       for _ in range(num_blocks)]
         self.Mixer_Block = nn.ModuleList(blocks)
-        self.LN = layer_norm(hidden_dim)
-        self.fc_out = nn.Linear(hidden_dim, num_classes)
+        self.LN = layer_norm(hidden_dim, dtype)
+        self.fc_out = Linear(hidden_dim, num_classes, compute_dtype=dtype)
         self.conv_out = nn.Conv1d(seq_len, pred_len, 1)
         torch_default_init_(self, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
         # the (1, D) Conv2d over the whole feature axis: a per-frame Linear
-        y = F.linear(x, self.conv.weight[:, 0, 0, :], self.conv.bias)
+        y = F.linear(cast(x, dt), cast(self.conv.weight[:, 0, 0, :], dt),
+                     cast(self.conv.bias, dt))
         for mb in self.Mixer_Block:
             y = mb(y)
         y = self.LN(y)
         # Conv1d(T, P, 1) over time-as-channels: (P, T) @ (B, T, H)
-        y = self.conv_out.weight[:, :, 0] @ y + self.conv_out.bias[:, None]
+        y = (cast(self.conv_out.weight[:, :, 0], dt) @ y
+             + cast(self.conv_out.bias, dt)[:, None])
         return self.fc_out(y)

@@ -1,13 +1,19 @@
 """Serving API: batched prediction from a trained ConvMixer or MlpMixer on
-one device.
+one device, or its bulk batches spread over several.
 
 Counterpart of ``motionmixerconv_tpu/serving.py``. ``Predictor`` keeps the
 model on its device and routes batches of at most ``fused_max_batch`` rows
 to the model's fused kernel (a ConvMixer's B2 ``ops/conv_mixer.py`` at
 conv_nChan 1 or B3 ``ops/conv_mixer_mc.py`` above; an MlpMixer's B4
-``ops/mlp_mixer.py``) and larger ones to the plain model forward. It runs
-on the card unless the caller passes ``device="cpu"``; with no card the
-default raises.
+``ops/mlp_mixer.py``) and larger ones to the plain model forward, or,
+with a ``mesh``, to replicas of it on the mesh's devices. It runs on the
+card unless the caller passes ``device="cpu"``; with no card the default
+raises.
+
+A model with a compute ``dtype`` (bf16) is routed as the JAX Predictor
+routes it: the fused kernels read only its float32 parameters and compute
+in float32, so batches of at most ``fused_max_batch`` rows get float32
+answers, and larger ones the model's own bf16 forward.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ from torch import nn
 
 from .models.mixer_conv import ConvMixer
 from .models.mixer_mlp import MlpMixer
+from .parallel.mesh import DataMesh
 
 
 def resolve_device(device) -> torch.device:
@@ -86,16 +93,27 @@ class Predictor:
             not take fall back to the plain forward with a visible warning
             (``fused_fallback_reason``).
         fused_max_batch: largest batch routed to the fused kernel.
-        mesh: the sharded bulk path is not ported yet and raises.
+        mesh: a one-process ``parallel.DataMesh`` (``make_mesh(devices)``):
+            a batch of more than ``fused_max_batch`` rows is padded to a
+            multiple of ``len(mesh.devices)``, split into contiguous
+            chunks, each run by a replica (``replicate_to``) on its own
+            device and stream, and gathered on ``device`` without the
+            padding rows; no collective. Smaller batches stay on the fused
+            kernel of ``device``.
     """
 
     def __init__(self, model: nn.Module, state_dict=None, *, device="cuda",
                  use_fused: bool = True, fused_max_batch: int = 128,
                  mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "the mesh-sharded bulk path lands with the multi-GPU slice "
-                "(ROADMAP queue A item 17)")
+        if mesh is not None and not isinstance(mesh, DataMesh):
+            raise TypeError(f"mesh must be a parallel.DataMesh, not "
+                            f"{type(mesh).__name__}")
+        if mesh is not None and mesh.group is not None:
+            raise ValueError(
+                "Predictor(mesh=) spreads a batch over one process's "
+                "devices: make_mesh(devices) outside a process group")
+        self.mesh = mesh
+        self._replicas: list = []
         self.device = resolve_device(device)
         model = copy.deepcopy(model)
         if state_dict is not None:
@@ -115,6 +133,11 @@ class Predictor:
                     f"serving: fused kernel unavailable "
                     f"({self.fused_fallback_reason}); all batches use the "
                     "plain forward", stacklevel=2)
+        if mesh is not None:
+            self._replicas = [
+                (r, torch.cuda.Stream(r.device) if r.device.type == "cuda"
+                 else None)
+                for r in (self.replicate_to(d) for d in mesh.devices)]
 
     @property
     def device_name(self) -> str:
@@ -124,8 +147,10 @@ class Predictor:
 
     def replicate_to(self, device) -> "Predictor":
         """A copy of this predictor on ``device``, with its own parameters
-        and (when active) its own packed fused weights."""
+        and (when active) its own packed fused weights; a single-device
+        predictor (the mesh's bulk path stays with this one)."""
         clone = copy.copy(self)
+        clone.mesh, clone._replicas = None, []
         clone.device = resolve_device(device)
         clone.model = copy.deepcopy(self.model).to(clone.device).eval()
         if self._fused is not None:
@@ -166,7 +191,36 @@ class Predictor:
         x = as_tensor(x, self.device)
         if self._fused is not None and x.shape[0] <= self.fused_max_batch:
             return self._fused(x)
+        if self.mesh is not None:
+            return self._predict_spread(x)
         return self.model(x)
+
+    def _predict_spread(self, x: torch.Tensor) -> torch.Tensor:
+        """The mesh's bulk path: pad to a multiple of the replicas, one
+        contiguous chunk a replica on its own stream, gathered here."""
+        b, n = x.shape[0], len(self._replicas)
+        bp = -(-b // n) * n
+        if bp != b:
+            x = torch.cat([x, x.new_zeros((bp - b, *x.shape[1:]))])
+        outs = []
+        for (rep, stream), chunk in zip(self._replicas, x.chunk(n)):
+            if stream is None:  # a CPU replica
+                outs.append((rep.model(chunk.to(rep.device)), None))
+                continue
+            stream.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(stream):
+                y = rep.model(chunk.to(rep.device, non_blocking=True))
+            if chunk.device == rep.device:
+                chunk.record_stream(stream)
+            outs.append((y, stream))
+        gathered = []
+        for y, stream in outs:
+            if stream is not None:  # the chunk's stream, then its reader's
+                torch.cuda.current_stream(y.device).wait_stream(stream)
+                torch.cuda.current_stream(self.device).wait_stream(stream)
+                y.record_stream(torch.cuda.current_stream(y.device))
+            gathered.append(y.to(self.device))
+        return torch.cat(gathered)[:b]
 
     @torch.inference_mode()
     def predict_autoregressive(self, x, horizon: int,

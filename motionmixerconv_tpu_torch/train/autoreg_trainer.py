@@ -22,8 +22,9 @@ forwards.
 Training and evaluation run the plain ``nn.Module`` forward with autograd;
 the fused kernels are inference only. On a CUDA device a step (teacher
 forcing or closed loop, one graph each) and an evaluation batch are
-captured CUDA graphs, replayed once per batch, as in ``Trainer``. The mesh
-(ROADMAP queue A item 17) raises, as in ``Trainer``.
+captured CUDA graphs, replayed once per batch, as in ``Trainer``. Under a
+mesh (``Trainer``'s) the harvest forward, like every train-mode forward,
+takes the global batch's BatchNorm statistics.
 """
 
 from __future__ import annotations
@@ -86,7 +87,8 @@ class AutoregressiveTrainer(Trainer):
     # ------------------------------------------------------------ train step
 
     def _train_loss(self, frames: torch.Tensor, starts: torch.Tensor,
-                    w: torch.Tensor, teacher_forcing=None) -> torch.Tensor:
+                    w: torch.Tensor, teacher_forcing=None,
+                    total=None) -> torch.Tensor:
         """The weighted mean rollout loss of the windows at ``starts``,
         after the once-per-step BatchNorm harvest. ``teacher_forcing`` is
         fixed in a captured step, as the JAX trainer binds it statically;
@@ -100,16 +102,17 @@ class AutoregressiveTrainer(Trainer):
                 self.model(seq[:, : self.input_n_model])
         with frozen_running_stats(self.model):
             per_sample, _ = self._rollout(seq, teacher_forcing)
-        return _wmean(per_sample, w) * self.loss_scale
+        return _wmean(per_sample, w, total) * self.loss_scale
 
     def train_step_ar(self, frames: torch.Tensor, starts: torch.Tensor,
                       w: torch.Tensor, teacher_forcing: bool) -> torch.Tensor:
         """One optimizer step of the rollout loss on the windows at
-        ``starts`` (weights ``w``); returns the weighted mean loss as a
-        device scalar (no host sync)."""
-        loss = self._step(frames, starts, w, teacher_forcing)
+        ``starts`` (weights ``w``; the global batch under a mesh); returns
+        the weighted mean loss as a device scalar (no host sync)."""
+        starts, w, total = self._shard(starts, w)
+        loss = self._step(frames, starts, w, teacher_forcing, total=total)
         self.optimizer.advance()
-        return loss
+        return self._reduce(loss)
 
     def train_epoch_ar(self, corpus: WindowedCorpus, frames: torch.Tensor,
                        batch_size: int, seed: int, teacher_forcing: bool,
@@ -121,8 +124,8 @@ class AutoregressiveTrainer(Trainer):
         FloatingPointError (the reference's ``assert not isnan(loss)``,
         train_autoreg_mixer_h36m.py:256)."""
         starts, w = self._epoch_batches(corpus, batch_size, [seed])
-        total, n = self._train_sums(frames, starts[0], w[0], teacher_forcing,
-                                    scan).tolist()
+        total, n = self._reduce(self._train_sums(
+            frames, starts[0], w[0], teacher_forcing, scan)).tolist()
         mean_loss = total / max(n, 1.0)
         if not np.isfinite(mean_loss):
             # closed-loop gradients can explode through the feedback rollout

@@ -21,8 +21,22 @@ back once.
 Both loss types are ported: 'mpjpe' (xyz) and 'angle' (L1 on the expmap
 dims, validated and tested by the euler error on the full frame, whose
 gimbal branches are masks, so the evaluation is device work a graph can
-replay). The mesh (data-parallel) path is a later slice and raises
-NotImplementedError.
+replay).
+
+Under a data-parallel mesh (``mesh=``, a ``parallel.DataMesh`` of ranks
+started by ``parallel.launch``) a run on n ranks computes what the same
+run computes on one, as the JAX package's single-controller mesh does:
+each rank takes the contiguous rows ``[r*B/n, (r+1)*B/n)`` of every global
+batch, in ``batch_starts``' order; its loss is its weighted sum over the
+global batch's weight sum (every rank holds the global batch's weights, so
+that sum needs no collective); the gradients are summed over the ranks by
+one all-reduce, before the clip, and every rank steps Adam alike from rank
+0's parameters; BatchNorm and Dropout take the global batch
+(``models/common.py``); evaluation rounds its batch up to a multiple of n
+with weight-0 rows; every epoch's and evaluation's sums are all-reduced
+once, at the end. On NCCL the collectives are captured in the step graphs;
+gloo cannot capture one, so there the steps run eagerly, as
+``scan=False``.
 
 Reference call-stack parity: h36m/train_mixer_h36m.py:47-279 (train),
 :282-417 (test_mpjpe), :420-469 (test_angle).
@@ -31,6 +45,7 @@ Reference call-stack parity: h36m/train_mixer_h36m.py:47-279 (train),
 from __future__ import annotations
 
 import hashlib
+import warnings
 from typing import Callable, Optional, Sequence
 
 import numpy as np
@@ -41,6 +56,8 @@ from ..data.constants import H36M_INDEX_TO_EQUAL_EVAL, H36M_INDEX_TO_IGNORE_EVAL
 from ..data.windows import WindowedCorpus, batch_starts, gather_windows
 from ..geometry.rotations import expmap2rotmat, rotmat2euler
 from ..metrics.metrics import auc_pck_from_dist, delta_2_gt
+from ..models.common import use_mesh
+from ..parallel.mesh import DataMesh, replicated_sharding
 from .graphs import StepGraph
 from .optim import Optimizer
 
@@ -78,8 +95,12 @@ def _per_sample_auc_pck(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
     return auc_pck_from_dist(dist, dim=(1, 2))
 
 
-def _wmean(per_sample: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    return torch.sum(per_sample * w) / torch.clamp(torch.sum(w), min=1.0)
+def _wmean(per_sample: torch.Tensor, w: torch.Tensor,
+           total: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """sum(per_sample * w) over max(total, 1); ``total`` is the global
+    batch's weight sum under a mesh, else the sum of ``w``."""
+    total = torch.sum(w) if total is None else total
+    return torch.sum(per_sample * w) / torch.clamp(total, min=1.0)
 
 
 def _make_delta(seq_all: torch.Tensor) -> torch.Tensor:
@@ -110,17 +131,15 @@ class Trainer:
         loss_scale: multiplier on the train loss.
         delta_x: velocity mode: the model consumes frame deltas and its
             predictions are decoded with a prefix sum.
-        mesh: the data-parallel path is a later slice and raises.
+        mesh: a ``parallel.DataMesh`` of ranks: data-parallel training
+            and evaluation (module docstring); the model lives on
+            ``mesh.device``. Only rank 0 writes (``is_writer``).
     """
 
     def __init__(self, model: nn.Module, optimizer: Optional[Optimizer], *,
                  loss_type: str, dim_used, input_n: int, output_n: int,
                  input_scale: float = 1.0, loss_scale: float = 1.0,
                  delta_x: bool = False, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "the data-parallel (mesh) trainer lands with the multi-GPU "
-                "slice (ROADMAP queue A item 17)")
         if loss_type not in ("mpjpe", "angle"):
             raise ValueError(f"unknown loss_type {loss_type}")
         self.model = model
@@ -141,6 +160,52 @@ class Trainer:
                                       device=self.device)
         self._graphs: dict = {}
         self._eval_stacks: dict = {}
+        self.mesh = mesh
+        self._capture = True  # steps on a CUDA device replay graphs
+        if mesh is not None:
+            self._join(mesh)
+
+    def _join(self, mesh: DataMesh) -> None:
+        """Check ``mesh``, start every rank from rank 0's parameters and
+        buffers, and let BatchNorm and Dropout see the global batch."""
+        if not isinstance(mesh, DataMesh):
+            raise TypeError(f"mesh must be a parallel.DataMesh, not "
+                            f"{type(mesh).__name__}")
+        if mesh.group is None and mesh.size > 1:
+            raise ValueError(
+                "a trainer's mesh is one of ranks (parallel.launch); a "
+                "one-process mesh over several devices serves "
+                "Predictor(mesh=) only")
+        if mesh.device != self.device:
+            raise ValueError(f"the model is on {self.device}, the mesh's "
+                             f"rank on {mesh.device}")
+        replicated_sharding(mesh, self.model)
+        use_mesh(self.model, mesh)
+        # gloo's collectives cannot be captured in a CUDA graph
+        self._capture = mesh.backend != "gloo"
+        if self.device.type == "cuda" and not self._capture and mesh.rank == 0:
+            warnings.warn(f"a mesh on {mesh.backend}: the steps run eagerly "
+                          "(a gloo collective cannot be captured in a CUDA "
+                          "graph)", stacklevel=3)
+
+    @property
+    def is_writer(self) -> bool:
+        """Whether this process writes checkpoints and logs: rank 0 only,
+        as the JAX package's single controller writes once."""
+        return self.mesh is None or self.mesh.rank == 0
+
+    def _shard(self, starts: torch.Tensor, w: torch.Tensor):
+        """This rank's rows of the global batch(es) on the last axis, and
+        the global weight sums (None without a mesh)."""
+        if self.mesh is None:
+            return starts, w, None
+        rows = self.mesh.rows(w.shape[-1])
+        return starts[..., rows], w[..., rows], w.sum(-1)
+
+    def _reduce(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed over the ranks (in place); as it is without a
+        mesh."""
+        return t if self.mesh is None else self.mesh.all_reduce(t)
 
     @property
     def seq_len(self) -> int:
@@ -168,38 +233,48 @@ class Trainer:
     # ------------------------------------------------------------ train step
 
     def _train_loss(self, frames: torch.Tensor, starts: torch.Tensor,
-                    w: torch.Tensor, teacher_forcing=None) -> torch.Tensor:
-        """The weighted mean train loss of the windows at ``starts``."""
+                    w: torch.Tensor, teacher_forcing=None,
+                    total: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The weighted mean train loss of the windows at ``starts``
+        (this rank's part of it under a mesh: ``total`` is the global
+        weight sum)."""
         model_in, seq_gt, last = self._prepare(
             gather_windows(frames, starts, self.seq_len))
         pred = self._predict(model_in, last)
         per = (_per_sample_mpjpe if self.loss_type == "mpjpe"
                else _per_sample_l1_angle)(pred, seq_gt)
-        return _wmean(per, w) * self.loss_scale
+        return _wmean(per, w, total) * self.loss_scale
 
     def _step(self, frames: torch.Tensor, starts: torch.Tensor,
               w: torch.Tensor, teacher_forcing=None,
-              sums: Optional[torch.Tensor] = None) -> torch.Tensor:
+              sums: Optional[torch.Tensor] = None,
+              total: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The device work of one optimizer step (the body a CUDA graph
-        captures): forward, loss, backward, clip and Adam; adds (loss * sum
-        w, sum w) into ``sums``. Returns the loss as a device scalar."""
-        loss = self._train_loss(frames, starts, w, teacher_forcing)
+        captures): forward, loss, backward, the gradients' all-reduce under
+        a mesh, clip and Adam; adds (loss * weight sum, sum w) into
+        ``sums``. Returns the loss (this rank's part under a mesh) as a
+        device scalar."""
+        loss = self._train_loss(frames, starts, w, teacher_forcing, total)
         self.optimizer.zero_grad()
         loss.backward()
+        if self.mesh is not None:
+            self.mesh.all_reduce_grads(self.optimizer.params)
         self.optimizer.update()
         loss = loss.detach()
         if sums is not None:
             n = w.sum()
-            sums += torch.stack([loss * n, n])
+            sums += torch.stack([loss * (n if total is None else total), n])
         return loss
 
     def train_step(self, frames: torch.Tensor, starts: torch.Tensor,
                    w: torch.Tensor) -> torch.Tensor:
-        """One optimizer step on the windows at ``starts`` (weights ``w``);
-        returns the weighted mean loss as a device scalar (no host sync)."""
-        loss = self._step(frames, starts, w)
+        """One optimizer step on the windows at ``starts`` (weights ``w``;
+        the global batch under a mesh); returns the weighted mean loss as
+        a device scalar (no host sync)."""
+        starts, w, total = self._shard(starts, w)
+        loss = self._step(frames, starts, w, total=total)
         self.optimizer.advance()
-        return loss
+        return self._reduce(loss)
 
     def _epoch_batches(self, corpus: WindowedCorpus, batch_size: int,
                        seeds: Sequence[int], orders=None):
@@ -223,7 +298,7 @@ class Trainer:
         graph cached under ``key`` and the corpus ``frames`` it reads (the
         graph holds the corpus, so its address stays that corpus's), else
         an eager one."""
-        if not (scan and self.device.type == "cuda"):
+        if not (scan and self.device.type == "cuda" and self._capture):
             return StepGraph(body, self.device, sums_shape, capture=False)
         key = (*key, frames.data_ptr(), tuple(frames.shape))
         runner = self._graphs.get(key)
@@ -235,15 +310,19 @@ class Trainer:
     def _train_sums(self, frames: torch.Tensor, starts: torch.Tensor,
                     w: torch.Tensor, teacher_forcing=None,
                     scan: bool = True) -> torch.Tensor:
-        """One epoch's steps over (n_batches, B) ``starts``/``w``; returns
-        the device sums (loss * sum w, sum w) without a host read."""
+        """One epoch's steps over (n_batches, B) ``starts``/``w`` (the
+        global batches under a mesh); returns the device sums (loss * sum
+        w, sum w) without a host read, this rank's under a mesh."""
         self.model.train()
+        starts, w, total = self._shard(starts, w)
+        stacked = (starts, w) if total is None else (starts, w, total)
         runner = self._runner(
             ("train", teacher_forcing, w.shape[1],
              self.optimizer.generation), frames,
-            lambda sums, s, ww: self._step(frames, s, ww, teacher_forcing,
-                                           sums), (2,), scan)
-        sums = runner.run(starts, w, after=self.optimizer.advance)
+            lambda sums, s, ww, *tot: self._step(frames, s, ww,
+                                                 teacher_forcing, sums, *tot),
+            (2,), scan)
+        sums = runner.run(*stacked, after=self.optimizer.advance)
         if runner.graph is not None:
             # replays updated the parameters in place without bumping their
             # version counters, which version-keyed caches read
@@ -261,7 +340,8 @@ class Trainer:
         launches each step op by op. ``order`` replaces the shuffle with an
         explicit window permutation (the lockstep parity runs)."""
         starts, w = self._epoch_batches(corpus, batch_size, [seed], [order])
-        total, n = self._train_sums(frames, starts[0], w[0], scan=scan).tolist()
+        total, n = self._reduce(
+            self._train_sums(frames, starts[0], w[0], scan=scan)).tolist()
         return total / max(n, 1.0)
 
     def run_epochs_fused(self, corpus: WindowedCorpus, frames: torch.Tensor,
@@ -293,7 +373,8 @@ class Trainer:
             te = self._eval_sums(tframes, test_starts, test_gids, n_groups,
                                  batch_size_test, test_kind, scan)
             rows.append(torch.cat([tr, va.flatten(), te.flatten()]))
-        out = torch.stack(rows).cpu().numpy()  # the chunk's one host read
+        # the chunk's one all-reduce and one host read
+        out = self._reduce(torch.stack(rows)).cpu().numpy()
         tr, va = out[:, :2].astype(np.float64), out[:, 2:5]
         te = out[:, 5:].reshape(len(seeds), 3, n_groups)
         return {"train": tr[:, 0] / np.maximum(tr[:, 1], 1.0),
@@ -306,7 +387,9 @@ class Trainer:
                             group_ids: np.ndarray, batch_size: int):
         """Pad eval windows to (n_batches, bs) device tensors, kept per
         content (as the JAX package keeps its fused evaluation stacks), so
-        that an evaluation set is copied to the device once."""
+        that an evaluation set is copied to the device once. Under a mesh
+        bs is rounded up to a multiple of the ranks (weight-0 rows absorb
+        the extra) and each rank keeps its rows."""
         key = (_content_key(window_starts), _content_key(group_ids),
                batch_size)
         hit = self._eval_stacks.get(key)
@@ -314,6 +397,8 @@ class Trainer:
             return hit
         n = len(window_starts)
         bs = max(1, min(batch_size, n))
+        if self.mesh is not None:
+            bs = -(-bs // self.mesh.size) * self.mesh.size
         n_batches = (n + bs - 1) // bs
         pad = n_batches * bs - n
         # padding repeats the first window (as batch_starts does): finite
@@ -321,18 +406,20 @@ class Trainer:
                                  np.repeat(window_starts[:1], pad)])
         w = np.concatenate([np.ones(n, np.float32), np.zeros(pad, np.float32)])
         gids = np.concatenate([group_ids, np.zeros(pad, np.int64)])
-        hit = self._eval_stacks[key] = (
-            self._to_device(starts.reshape(n_batches, bs), torch.long),
-            self._to_device(w.reshape(n_batches, bs), torch.float32),
-            self._to_device(gids.reshape(n_batches, bs), torch.long))
+        rows = slice(None) if self.mesh is None else self.mesh.rows(bs)
+        hit = self._eval_stacks[key] = tuple(
+            self._to_device(np.ascontiguousarray(
+                a.reshape(n_batches, bs)[:, rows]), dtype)
+            for a, dtype in ((starts, torch.long), (w, torch.float32),
+                             (gids, torch.long)))
         return hit
 
     def _eval_sums(self, frames: torch.Tensor, window_starts: np.ndarray,
                    group_ids: np.ndarray, n_groups: int, batch_size: int,
                    kind: str, scan: bool = True) -> torch.Tensor:
         """(3, n_groups) device sums of the two per-sample metrics of
-        ``kind`` times the weights, and of the weights, per group; no host
-        read."""
+        ``kind`` times the weights, and of the weights, per group (this
+        rank's under a mesh); no host read."""
         per_sample = self._per_sample_for_kind(kind)
         starts, w, gids = self._stack_eval_batches(
             window_starts, group_ids, batch_size)
@@ -357,8 +444,9 @@ class Trainer:
         arrays (train_mixer_h36m.py:311-323 evaluates each action with its
         own loader; here every group's windows share one corpus). ``scan``
         as in ``train_epoch``."""
-        out = self._eval_sums(frames, window_starts, group_ids, n_groups,
-                              batch_size, kind, scan).cpu().numpy()
+        out = self._reduce(self._eval_sums(
+            frames, window_starts, group_ids, n_groups, batch_size, kind,
+            scan)).cpu().numpy()
         return out[0], out[1], out[2]
 
     def _per_sample_for_kind(self, kind: str) -> PerSample:

@@ -199,7 +199,9 @@ def test_autoregressive_trainer_refuses_what_is_not_ported():
     model = ConvMixer(**AR_SMALL)
     opt = make_optimizer(model.parameters(), lr=1e-3)
     kw = dict(dim_used=H36M_DIM_USED_XYZ, **AR_GEOMETRY)
-    with pytest.raises(NotImplementedError, match="item 17"):
+    # the mesh is ported (tests/test_torch_parallel.py); what is not a
+    # mesh is refused
+    with pytest.raises(TypeError, match="DataMesh"):
         AutoregressiveTrainer(model, opt, loss_type="mpjpe", mesh=object(), **kw)
 
 

@@ -388,7 +388,6 @@ JAX_ONLY = {
 # whole subpackages and modules still queued (ROADMAP queue A)
 JAX_ONLY_MODULES = {
     "viz": "A16, viz (no matplotlib or Pillow on the card's machine)",
-    "parallel": "A17, multi-GPU",
     "_native": "A20, the native CSV reader",
     "profiling": "A18, the H100 measurement harness",
 }

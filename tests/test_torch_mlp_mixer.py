@@ -316,8 +316,16 @@ def test_b4_domain_and_dtype_refusals(monkeypatch):
     monkeypatch.setattr(mlp_mixer, "_INT_MAX", 1000)
     with pytest.raises(NotImplementedError, match="32-bit"):
         mlp_mixer.make_fused_mlp_mixer(model)
-    with pytest.raises(NotImplementedError, match="bf16"):
-        MlpMixer(**_cfg(), dtype=torch.bfloat16)
+    monkeypatch.undo()
+    # a bf16 model's weights are float32: B4 serves them as the float32
+    # model's (the JAX Predictor's route), the same answers
+    m32 = MlpMixer(**_cfg(), generator=torch.Generator().manual_seed(0))
+    m16 = MlpMixer(**_cfg(), dtype=torch.bfloat16)
+    m16.load_state_dict(m32.state_dict())
+    x = torch.randn(3, 10, 66) * 0.5
+    torch.testing.assert_close(mlp_mixer.make_fused_mlp_mixer(m16)(x),
+                               mlp_mixer.make_fused_mlp_mixer(m32)(x),
+                               rtol=0, atol=0)
 
 
 # ------------------------------------------------- training trajectories

@@ -233,8 +233,13 @@ def test_pose_encoder_rejects_incompatible_flags(kw, match):
 
 
 def test_compute_dtype_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="compute dtype"):
-        ConvMixer(**FLAGSHIP_2B, dtype=torch.bfloat16)
+    """The compute dtype is ported (tests/test_torch_bf16.py): the
+    parameters stay float32, and the fused encoder refuses it as the JAX
+    PoseEncoder does."""
+    model = ConvMixer(**FLAGSHIP_2B, dtype=torch.bfloat16)
+    assert {p.dtype for p in model.parameters()} == {torch.float32}
+    with pytest.raises(ValueError, match="f32-only"):
+        ConvMixer(**FLAGSHIP_2B, dtype=torch.bfloat16, encoder_fused=True)
 
 
 def test_unknown_harmonic_impl_rejected():

@@ -143,7 +143,7 @@ def test_pt_checkpoint_roundtrip(tmp_path):
                                          .predict(jnp.asarray(x))), atol=2e-5)
     with pytest.raises(ValueError, match="no architecture"):
         Predictor.from_checkpoint(None, ckpt, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 17"):
+    with pytest.raises(TypeError, match="DataMesh"):
         Predictor(ConvMixer(**SMALL), device="cpu", mesh=object())
 
 

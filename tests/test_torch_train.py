@@ -32,6 +32,7 @@ from motionmixerconv_tpu_torch.cli._runner import (WEIGHTS_FILE,
 from motionmixerconv_tpu_torch.data import WindowedCorpus
 from motionmixerconv_tpu_torch.models import ConvMixer, state_dict_from_jax
 from motionmixerconv_tpu_torch.ops import harmonic
+from motionmixerconv_tpu_torch.parallel import make_mesh
 from motionmixerconv_tpu_torch.serving import Predictor
 from motionmixerconv_tpu_torch.train import Trainer, make_optimizer
 
@@ -179,8 +180,13 @@ def test_trainer_refuses_what_is_not_ported():
                              encoder_n_harmonic_functions=2))
     opt = make_optimizer(model.parameters(), lr=1e-3)
     kw = dict(dim_used=np.arange(66), input_n=10, output_n=25)
-    with pytest.raises(NotImplementedError, match="item 17"):
+    # the mesh is ported (tests/test_torch_parallel.py); what is not a
+    # mesh of ranks is refused
+    with pytest.raises(TypeError, match="DataMesh"):
         Trainer(model, opt, loss_type="mpjpe", mesh=object(), **kw)
+    with pytest.raises(ValueError, match="one of ranks"):
+        Trainer(model, opt, loss_type="mpjpe",
+                mesh=make_mesh(["cpu", "cpu"]), **kw)
 
 
 def test_train_epoch_pads_and_weights_the_last_batch():

@@ -106,7 +106,20 @@ against float64, [27] the bf16 compute dtype: the flagship's bf16
 forward against its float32 one (0.05 relative), 20 graph-replayed bf16
 and float32 train steps timed in one call, and a bf16 MlpMixer's weights
 served through B4 against its float32 plain forward (launch counts reset
-just before each of 26's and 27's paths and read just after its serving).
+just before each of 26's and 27's paths and read just after its serving),
+[28] the last JAX-only modules: (a) a synthetic H36M corpus of every
+action and subject read by the native C++ reader (``_native``) and by
+``np.loadtxt``, held within the JAX test's 1e-6 and both timed, with the
+host's CPU count; (b) the training CLI (``--loss_type mpjpe
+--fused_encoder --epochs_per_dispatch 2``, skip 5) with
+``MMC_PROFILE_DIR`` set: the first chunk's ``torch.profiler`` trace
+parsed, B1-fwd's and B1-bwd's kernels found among its device events
+beside B1's device counters; (c) ``viz.galleries --max_gifs 0`` and
+``viz.live.predict_windows`` on its checkpoint on the card, each held to
+the CPU at 1e-4 relative, B1-fwd on the device in the galleries'
+evaluations; (d) ``--visualize``: without matplotlib the CLI exits
+non-zero naming it before any epoch, with it the GIFs decode (launch
+counts reset just before (b) and read just after (c)).
 Then the whole run's seconds, one JSON line with every kernel's
 numbers, the card's name and power limit, and the result line. Any failure exits non-zero; with
 no CUDA device, or with the port's package missing beside this script, it
@@ -238,10 +251,19 @@ TOL_MESH = 1e-6      # NCCL mesh against mesh=None, relative; bit-identical expe
 MESH_BULK = (5, 257)  # Predictor(mesh=) bulk batches: 3 * 2 - 1 and 257
 TOL_BF16 = 0.05      # bf16 forward against float32, relative (JAX's bound)
 BF16_STEPS = 20      # graph-replayed steps a timing window
+# phase 28: the native reader on a corpus of every action and subject,
+# VIZ_NATIVE_FRAMES frames a file; the traced training run on a small one
+# (VIZ_FRAMES frames a file, skip 5: ~170 steps in the traced chunk, so
+# that the trace is whole); the galleries and predictions on the card
+# against the CPU, relative
+VIZ_NATIVE_FRAMES = 1000
+VIZ_FRAMES = 340
+VIZ_ARGV = ["--loss_type", "mpjpe", "--fused_encoder", *EPD2,
+            "--skip_rate", "5"]
+TOL_NATIVE = 1e-6  # of the largest magnitude, tests/test_native_csv.py:71
+TOL_VIZ = 1e-4     # card against CPU, relative
+VIZ_WINDOWS = 8    # predict_windows' windows
 DEVICE = "cuda:0"  # the one card the script needs
-# H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores, HBM3
-PEAK_F32_FLOPS = 67e12
-PEAK_BYTES = 3.35e12
 
 # the flagship: mmc-serve's defaults (bench.py's H36M ConvMixer shape)
 FLAGSHIP = dict(
@@ -1242,7 +1264,15 @@ def fmt_b4_times(tag, times: dict) -> str:
 
 
 def bound(nbytes: int, ops: int):
-    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32_FLOPS * 1e3
+    """(the least ms the card could take, its limit): the bytes over the
+    memory rate or the float32 operations over the float32 rate, NVIDIA's
+    H100 data sheet (the port's ``profiling`` tables), whichever is
+    larger."""
+    from motionmixerconv_tpu_torch.profiling import (H100, PEAK_BYTES,
+                                                     PEAK_FLOPS_F32)
+
+    t_bytes = nbytes / PEAK_BYTES[H100] * 1e3
+    t_ops = ops / PEAK_FLOPS_F32[H100] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -2637,6 +2667,237 @@ def bf16_path(torch, np, dev, card, counters) -> dict:
             "ratio": ratio}
 
 
+def viz_path(torch, np, dev, card, work, counters) -> dict:
+    """Phase 28: the native reader, the profiler trace and the viz modules
+    on the card. (a) A synthetic H36M corpus of every action and subject
+    (VIZ_NATIVE_FRAMES frames a file) read by the native reader (the
+    many-files call) and by ``np.loadtxt`` file by file, each array held
+    within TOL_NATIVE; ``H36MDataset``'s train split (angle frames) built
+    through each, held likewise; all timed. (b) The training CLI
+    (VIZ_ARGV) with ``MMC_PROFILE_DIR`` set, on a small corpus: the first
+    chunk's trace file parsed, its device kernel events counted, B1-fwd's
+    and B1-bwd's among them, beside B1's device launches in the run
+    (phase 9's counters). (c) ``viz.galleries --max_gifs 0`` on (b)'s
+    checkpoint on the card, its per-action MPJPE and AUC-PCK held to the
+    same evaluation on the CPU (TOL_VIZ, relative), ``tables.md`` read
+    back; ``viz.live.predict_windows`` on the card held to the CPU. (d)
+    ``--visualize``: where matplotlib does not import, the CLI exits
+    non-zero naming it before any epoch; where it does, its GIFs decode.
+    The Python counters reset just before (b) and read just after (c)."""
+    import os
+
+    from motionmixerconv_tpu_torch._native import build as native
+    from motionmixerconv_tpu_torch.cli import train_mixer_h36m
+    from motionmixerconv_tpu_torch.data import H36MDataset, fixtures, h36m
+    from motionmixerconv_tpu_torch.ops import harmonic
+    from motionmixerconv_tpu_torch.train import Trainer
+    from motionmixerconv_tpu_torch.viz import galleries, live
+
+    t_phase = time.perf_counter()
+    vdir = work / "viz"
+    shutil.rmtree(vdir, ignore_errors=True)
+    cpus = (os.cpu_count(), len(os.sched_getaffinity(0)))
+
+    # (a) the corpus through the native reader and through np.loadtxt
+    big = vdir / "h36m_native"
+    t0 = time.perf_counter()
+    fixtures.make_h36m_corpus(str(big), n_frames=VIZ_NATIVE_FRAMES,
+                              seed=SEED + 28)
+    write_s = time.perf_counter() - t0
+    paths = sorted(str(p) for p in big.glob("h3.6m/dataset/S*/*.txt"))
+    t0 = time.perf_counter()
+    native.load_csv_reader()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got = native.read_csv_many_native(paths)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = [h36m._loadtxt(p) for p in paths]
+    loadtxt_s = time.perf_counter() - t0
+    file_err = 0.0
+    for p, g, w in zip(paths, got, want):
+        if g is None or g.shape != w.shape:
+            fail(f"native reader on {p}: {None if g is None else g.shape} "
+                 f"against np.loadtxt's {w.shape}")
+        file_err = max(file_err, float(np.abs(g - w).max() / np.abs(w).max()))
+    n_values = sum(w.size for w in want)
+    t0 = time.perf_counter()
+    ds_native = H36MDataset(str(big), 10, 25, 1, split=0, mode="angle")
+    ds_native_s = time.perf_counter() - t0
+    many = h36m.read_csv_many_native
+    h36m.read_csv_many_native = lambda ps: [None] * len(ps)  # np.loadtxt
+    try:
+        t0 = time.perf_counter()
+        ds_loadtxt = H36MDataset(str(big), 10, 25, 1, split=0, mode="angle")
+        ds_loadtxt_s = time.perf_counter() - t0
+    finally:
+        h36m.read_csv_many_native = many
+    ds_err = float(np.abs(ds_native.frames - ds_loadtxt.frames).max()
+                   / np.abs(ds_loadtxt.frames).max())
+    say(f"[28a native reader] {card} | host: os.cpu_count() {cpus[0]}, "
+        f"usable {cpus[1]} | {len(paths)} files x {VIZ_NATIVE_FRAMES} "
+        f"frames x 99, {n_values} values, written in {write_s:.2f} s | "
+        f"reader build/load {build_s:.3f} s | all files: native "
+        f"(many-files, thread pool) {native_s:.3f} s, np.loadtxt one by one "
+        f"{loadtxt_s:.3f} s ({loadtxt_s / native_s:.1f}x) | H36MDataset "
+        f"train split (angle, {ds_native.frames.shape[0]} frames) native "
+        f"{ds_native_s:.3f} s, np.loadtxt {ds_loadtxt_s:.3f} s | max err / "
+        f"max|ref|: files {file_err:.3e}, dataset {ds_err:.3e} (tol "
+        f"{TOL_NATIVE:g})")
+    if not (file_err <= TOL_NATIVE and ds_err <= TOL_NATIVE):
+        fail(f"native reader against np.loadtxt: files {file_err:.3e}, "
+             f"dataset {ds_err:.3e}")
+    del got, want, ds_native, ds_loadtxt
+
+    # (b) the training CLI's first chunk under the profiler
+    small = vdir / "h36m"
+    fixtures.make_h36m_corpus(str(small), n_frames=VIZ_FRAMES, seed=SEED + 29)
+    save, prof = vdir / "runs", vdir / "prof"
+    argv = [*VIZ_ARGV, "--data_dir", str(small), "--save_path", str(save)]
+    args = train_mixer_h36m.parse_args(argv)
+    n_train = len(H36MDataset(str(small), args.input_n, args.output_n,
+                              args.skip_rate, split=0))
+    steps = args.n_epochs * -(-n_train // args.batch_size)
+    for c in counters.values():
+        c.reset()
+    os.environ["MMC_PROFILE_DIR"] = str(prof)
+    t0 = time.perf_counter()
+    try:
+        with counted_launches(harmonic, Trainer, COUNTED_METHODS) as in_run:
+            hist = train_mixer_h36m.main(argv)
+    finally:
+        del os.environ["MMC_PROFILE_DIR"]
+    run_s = time.perf_counter() - t0
+    traces = sorted(prof.glob("*.json"))
+    if len(traces) != 1:
+        fail(f"MMC_PROFILE_DIR: {len(traces)} trace files, expected 1")
+    t0 = time.perf_counter()
+    with open(traces[0]) as f:
+        events = json.load(f)["traceEvents"]
+    parse_s = time.perf_counter() - t0
+    kernels = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    in_trace = {k: sum(k in n for n in kernels) for k in B1_IN_RUN}
+    on_device = {k: sum(in_run[m][k] for m in COUNTED_METHODS)
+                 for k in B1_IN_RUN}
+    say(f"[28b traced training run] {card} | train_mixer_h36m "
+        f"{' '.join(VIZ_ARGV)}, MMC_PROFILE_DIR: {n_train} train windows, "
+        f"{steps} train steps in the traced chunk (epochs 0-1), run "
+        f"{run_s:.2f} s | train loss {hist['train']} | trace "
+        f"{traces[0].name} {traces[0].stat().st_size} B, {len(events)} "
+        f"events parsed in {parse_s:.2f} s, {len(kernels)} device kernel "
+        f"events | in the trace: {in_trace} | B1's device counters in the "
+        f"run: training {in_run['_train_sums']}, evaluation "
+        f"{in_run['_eval_sums']}")
+    if non_finite(np, hist, ("mpjpe", "auc_pck")):
+        fail(f"traced run: non-finite {non_finite(np, hist, ('mpjpe', 'auc_pck'))}")
+    if not kernels:
+        fail("the trace holds no device kernel events")
+    for k in B1_IN_RUN:
+        if in_trace[k] < 1:
+            fail(f"{k} is not in the first chunk's trace")
+        if in_run["_train_sums"][k] < steps:
+            fail(f"{k}: {in_run['_train_sums'][k]} device launches in "
+                 f"{steps} train steps")
+    del events, kernels
+
+    # (c) galleries and predictions on the card, against the CPU
+    ckpt = save / "h36_3d_25frames_ckpt" / "train_state.pt"
+    t0 = time.perf_counter()
+    with counted_launches(harmonic, Trainer, ("_eval_sums",)) as gal_run:
+        rows = galleries.main(["--checkpoint", str(ckpt), "--data_dir",
+                               str(small), "--out", str(vdir / "galleries"),
+                               "--max_gifs", "0"])
+    gal_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rows_cpu = galleries.h36m_galleries(str(ckpt), str(small),
+                                        str(vdir / "galleries_cpu"),
+                                        max_gifs=0, device="cpu")
+    gal_cpu_s = time.perf_counter() - t0
+    gal_err = max(abs(a - b) / abs(b) for r, rc in zip(rows, rows_cpu)
+                  for a, b in zip(r[1:], rc[1:]))
+    table = (vdir / "galleries" / "tables.md").read_text().splitlines()
+    t0 = time.perf_counter()
+    gt_card, pred_card = live.predict_windows(str(ckpt), str(small), "walking",
+                                              n_viz=VIZ_WINDOWS, device=dev)
+    pw_s = time.perf_counter() - t0
+    gt_cpu, pred_cpu = live.predict_windows(str(ckpt), str(small), "walking",
+                                            n_viz=VIZ_WINDOWS, device="cpu")
+    torch.cuda.synchronize()
+    launches = {k: c.value for k, c in counters.items()}
+    pw_err = float(np.abs(pred_card - pred_cpu).max()
+                   / np.abs(pred_cpu).max())
+    gal_b1 = gal_run["_eval_sums"][B1_IN_RUN[0]]
+    say(f"[28c galleries and predictions] {card} | viz.galleries "
+        f"--max_gifs 0 on the traced run's train_state.pt: {len(rows)} "
+        f"actions in {gal_s:.2f} s on the card ({gal_cpu_s:.2f} s on the "
+        f"CPU), mean MPJPE {np.mean([r[1] for r in rows]):.3f} mm, AUC-PCK "
+        f"{np.mean([r[2] for r in rows]):.4f}; card against CPU max rel "
+        f"{gal_err:.3e} (tol {TOL_VIZ:g}); B1-fwd device launches in its "
+        f"evaluations {gal_b1} | predict_windows ({VIZ_WINDOWS} windows) "
+        f"{pw_s:.2f} s, card against CPU max err / max|ref| {pw_err:.3e} "
+        f"(tol {TOL_VIZ:g}) | Python launch counts on the path (28b-c) "
+        f"{launches}")
+    if len(rows) != 15 or len(table) != 4 + 15 + 1 or "average" not in table[-1]:
+        fail(f"galleries: {len(rows)} rows, tables.md of {len(table)} lines")
+    if not gal_err <= TOL_VIZ:
+        fail(f"galleries on the card against the CPU: {gal_err:.3e}")
+    if pred_card.shape != (VIZ_WINDOWS, 25, 32, 3) or not pw_err <= TOL_VIZ:
+        fail(f"predict_windows: shape {pred_card.shape}, err {pw_err:.3e}")
+    if not np.array_equal(gt_card, gt_cpu):
+        fail("predict_windows: the ground truth differs between card and CPU")
+    if gal_b1 < len(rows) or launches["harmonic_dense_fwd"] < 1:
+        fail(f"B1-fwd not on the galleries' or predictions' path: {gal_b1}, "
+             f"{launches}")
+
+    # (d) --visualize
+    vis = vdir / "visualize"
+    vis_argv = ["--loss_type", "mpjpe", "--visualize", "--n_epochs", "1",
+                "--skip_rate", "5", "--data_dir", str(small), "--save_path",
+                str(vis)]
+    try:
+        import matplotlib  # noqa: F401
+        have_mpl = True
+    except ImportError:
+        have_mpl = False
+    t0 = time.perf_counter()
+    if have_mpl:
+        from PIL import Image
+
+        train_mixer_h36m.main(vis_argv)
+        gifs = sorted((vis / "h36_3d_25frames_ckpt" / "visualization")
+                      .glob("*.gif"))
+        frames = []
+        for g in gifs:
+            with Image.open(g) as im:
+                frames.append(im.n_frames)
+        # (the GIF writer merges identical consecutive frames)
+        vis_note = (f"matplotlib imports: GIFs {[g.name for g in gifs]}, "
+                    f"decoded frames {frames} of 35 rendered each")
+        if len(gifs) != 2 or not all(1 < n <= 35 for n in frames):
+            fail(f"--visualize: {vis_note}")
+    else:
+        r = subprocess.run(
+            [sys.executable, "-m",
+             "motionmixerconv_tpu_torch.cli.train_mixer_h36m", *vis_argv],
+            cwd=ROOT, capture_output=True, text=True, timeout=300)
+        vis_note = (f"no matplotlib: exit {r.returncode} before any epoch "
+                    f"(no run directory, no epoch line), stderr's last line "
+                    f"{r.stderr.strip().splitlines()[-1:]}")
+        if (r.returncode == 0 or "matplotlib" not in r.stderr
+                or "epoch 0" in r.stdout or vis.exists()):
+            fail(f"--visualize without matplotlib: {vis_note}; stdout "
+                 f"{r.stdout[-300:]!r}")
+    vis_s = time.perf_counter() - t0
+    seconds = time.perf_counter() - t_phase
+    say(f"[28d --visualize] {vis_note}, {vis_s:.2f} s | phase "
+        f"{seconds:.1f} s")
+    return {"launches": launches, "seconds": seconds, "in_trace": in_trace,
+            "on_device": on_device, "train": dict(in_run["_train_sums"]),
+            "steps": steps, "gal_b1": gal_b1, "gal_err": gal_err,
+            "pw_err": pw_err, "native_s": native_s, "loadtxt_s": loadtxt_s,
+            "gal_s": gal_s}
+
+
 def main() -> None:
     t_run = time.perf_counter()
     import numpy as np
@@ -3389,6 +3650,10 @@ def main() -> None:
     mesh = mesh_path(torch, np, dev, card, counters)
     bf16 = bf16_path(torch, np, dev, card, counters)
 
+    # [28] the native reader, the first chunk's profiler trace, the
+    # galleries and predictions on the card, --visualize
+    viz = viz_path(torch, np, dev, card, work, counters)
+
     def timed(v, **extra):
         """A times entry of b1_times, b2_times or b4_times as the kernels
         line's keys."""
@@ -3431,6 +3696,11 @@ def main() -> None:
          "angle_device_launches_per_train_step":
              paths["angle"]["b1_train"][B1_IN_RUN[0]] / paths["angle"]["steps"],
          "mesh_nccl_device_launches_per_train_step": mesh["b1_per_step"][0],
+         "viz_traced_run": {
+             "trace_kernel_events": viz["in_trace"][B1_IN_RUN[0]],
+             "device_launches": viz["on_device"][B1_IN_RUN[0]],
+             "train_steps": viz["steps"],
+             "galleries_device_launches": viz["gal_b1"]},
          "parity_device_launches_per_train_step": {
              run: parity["b1"][run][B1_IN_RUN[0]] / parity["steps"]
              for run in ("h36m_fused", "h36m_sync_fused")},
@@ -3456,6 +3726,10 @@ def main() -> None:
          "angle_device_launches_per_train_step":
              paths["angle"]["b1_train"][B1_IN_RUN[1]] / paths["angle"]["steps"],
          "mesh_nccl_device_launches_per_train_step": mesh["b1_per_step"][1],
+         "viz_traced_run": {
+             "trace_kernel_events": viz["in_trace"][B1_IN_RUN[1]],
+             "device_launches": viz["on_device"][B1_IN_RUN[1]],
+             "train_steps": viz["steps"]},
          "parity_device_launches_per_train_step": {
              run: parity["b1"][run][B1_IN_RUN[1]] / parity["steps"]
              for run in ("h36m_fused", "h36m_sync_fused")},
@@ -3517,7 +3791,8 @@ def main() -> None:
                                  "parity": parity["launches"][k["name"]],
                                  "cmu": cmu["launches"][k["name"]],
                                  "mesh": mesh["launches"][k["name"]],
-                                 "bf16": bf16["launches"][k["name"]]}
+                                 "bf16": bf16["launches"][k["name"]],
+                                 "viz": viz["launches"][k["name"]]}
     say(f"[run] {time.perf_counter() - t_run:.1f} s, the kernels' build "
         f"included | phases 21-23: {interchange['seconds']:.1f} s "
         f"interchange, conv_study calls "
@@ -3529,7 +3804,8 @@ def main() -> None:
         f"{parity['seconds']:.1f} s, phase 25 (cmu) {cmu['seconds']:.1f} s"
         f" | phase 26 (mesh) a {mesh['seconds']['a']:.1f} s, b "
         f"{mesh['seconds']['b']:.1f} s, c {mesh['seconds']['c']:.1f} s, "
-        f"phase 27 (bf16) {bf16['seconds']:.1f} s")
+        f"phase 27 (bf16) {bf16['seconds']:.1f} s, phase 28 (viz) "
+        f"{viz['seconds']:.1f} s")
     say(json.dumps({"kernels": kernels}))
     say(card)
     say(json.dumps({"ok": True, "device": {

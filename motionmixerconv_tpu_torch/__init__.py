@@ -25,6 +25,14 @@ that serves CPU tensors.
 - ``parity_runs`` — full-schedule convergence runs held to the recorded
   reference runs (``python -m motionmixerconv_tpu_torch.parity_runs``)
 - ``serving``  — Predictor; ``serving_server`` — micro-batching HTTP server
+- ``viz``      — skeleton GIFs and viewers: ``python -m
+  motionmixerconv_tpu_torch.viz.galleries``, ``viz.live``, ``viz.ais_raw``
+  (evaluation on the card; matplotlib renders on the host)
+- ``profiling`` — the card's ceilings, ``profile_trace``
+  (``MMC_PROFILE_DIR`` traces a run's first epoch or chunk), the
+  throughput meter
+- ``_native``  — the C++ CSV reader the H3.6M and CMU corpora are read
+  through, built with ``g++`` into ``build/native/`` at first use
 """
 
 from . import geometry, metrics  # lightweight subpackages

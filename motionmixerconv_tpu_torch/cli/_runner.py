@@ -29,6 +29,7 @@ from ..data.constants import (AIS_DIM_USED, AIS_TEST_ACTIONS,
                               H36M_DIM_USED_XYZ, define_actions)
 from ..logging import MetricLogger
 from ..models import ConvMixer, MlpMixer
+from ..profiling import profile_dir_from_env, profile_trace
 from ..serving import resolve_device
 from ..train import (AutoregressiveTrainer, Trainer, make_optimizer,
                      restore_checkpoint, save_checkpoint)
@@ -207,6 +208,51 @@ def model_from_checkpoint_meta(meta: dict) -> torch.nn.Module:
     return build_conv_mixer(args, dim, dim, in_n, out_n)
 
 
+def h36m_visualization_arrays(trainer: Trainer, test_set, n_windows: int = 2,
+                              first: int = 10):
+    """(all_seq, gt, full_in) host arrays of windows ``first`` to ``first +
+    n_windows``, computed on the trainer's device: the full-skeleton
+    prediction (decoded by ``delta_2_gt`` under ``delta_x``) and ground
+    truth (T_out, 96) with the ignored joints re-inserted from their
+    equals, and the (T_in, 96) input frames (train_mixer_h36m.py:399-411,
+    the save_results path of test_mpjpe, which starts at window 10)."""
+    frames = test_set.frames_on(trainer.device)
+    starts = torch.as_tensor(
+        test_set.window_starts[first: first + n_windows], dtype=torch.long,
+        device=trainer.device)
+    trainer.model.eval()
+    with torch.no_grad():
+        batch, pred, _ = trainer._forward_eval(frames, starts)
+        full_gt = batch[:, trainer.input_n:]
+        all_seq = trainer._in_full_frame(full_gt, pred)
+        all_seq[:, :, trainer._ignore] = all_seq[:, :, trainer._equal]
+        gt = full_gt.clone()
+        gt[:, :, trainer._ignore] = full_gt[:, :, trainer._equal]
+    return (all_seq.cpu().numpy(), gt.cpu().numpy(),
+            batch[:, :trainer.input_n].cpu().numpy())
+
+
+def export_h36m_visualizations(trainer: Trainer, test_set, log_dir: str,
+                               action: str, n_windows: int = 2) -> list:
+    """Render prediction-vs-gt GIFs of ``h36m_visualization_arrays``'
+    windows into ``log_dir/visualization/<action>_<i>.gif``: the
+    prediction in yellow over the blue ground truth, preceded by the blue
+    input frames. Returns the paths."""
+    from ..viz import visualize_batch
+
+    all_seq, gt, full_in = h36m_visualization_arrays(trainer, test_set,
+                                                     n_windows)
+    out_dir = os.path.join(log_dir, "visualization")
+    os.makedirs(out_dir, exist_ok=True)
+    paths = []
+    for i in range(all_seq.shape[0]):
+        path = os.path.join(out_dir, f"{action}_{i}.gif")
+        visualize_batch(all_seq[i], path, batch_gt=gt[i],
+                        batch_train=full_in[i])
+        paths.append(path)
+    return paths
+
+
 def _log_epoch(history: dict, logger: MetricLogger, epoch: int,
                train_loss: float, val_loss: float, m1s, m2s, ns,
                action_names, metric_names: tuple, m1_scale: float) -> float:
@@ -296,15 +342,16 @@ def _train_and_evaluate(
 
     for epoch in range(start_epoch, args.n_epochs):
         t0 = time.perf_counter()
-        if autoreg:
-            tf = epoch < teacher_forcing_epochs
-            train_loss = trainer.train_epoch_ar(
-                dataset, frames, args.batch_size, seed=epoch,
-                teacher_forcing=tf)
-        else:
-            train_loss = trainer.train_epoch(
-                dataset, frames, args.batch_size, seed=epoch,
-                order=batch_order_fn(epoch) if batch_order_fn else None)
+        with profile_trace(profile_dir_from_env() if epoch == 0 else None):
+            if autoreg:
+                tf = epoch < teacher_forcing_epochs
+                train_loss = trainer.train_epoch_ar(
+                    dataset, frames, args.batch_size, seed=epoch,
+                    teacher_forcing=tf)
+            else:
+                train_loss = trainer.train_epoch(
+                    dataset, frames, args.batch_size, seed=epoch,
+                    order=batch_order_fn(epoch) if batch_order_fn else None)
         train_s = time.perf_counter() - t0
         logger.add_scalar("perf/train_seq_per_sec",
                           len(dataset) / max(train_s, 1e-9), epoch)
@@ -388,16 +435,17 @@ def _train_and_evaluate_fused(args, trainer: Trainer, logger: MetricLogger,
     non-finite logs its finite prefix of epochs, then raises
     FloatingPointError; the last checkpoint is the previous chunk's."""
     autoreg = teacher_forcing_epochs is not None
-    for chunk in _chunk_epochs(start_epoch, args.n_epochs, epd,
-                               teacher_forcing_epochs):
+    for ci, chunk in enumerate(_chunk_epochs(start_epoch, args.n_epochs, epd,
+                                             teacher_forcing_epochs)):
         epochs = list(chunk)
         k = len(epochs)
         tf = epochs[0] < teacher_forcing_epochs if autoreg else None
         t0 = time.perf_counter()
-        out = trainer.run_epochs_fused(
-            dataset, frames, args.batch_size, epochs, vald, vframes,
-            test_frames, test_starts, test_gids, len(action_names), test_kind,
-            batch_size_test, teacher_forcing=tf)
+        with profile_trace(profile_dir_from_env() if ci == 0 else None):
+            out = trainer.run_epochs_fused(
+                dataset, frames, args.batch_size, epochs, vald, vframes,
+                test_frames, test_starts, test_gids, len(action_names),
+                test_kind, batch_size_test, teacher_forcing=tf)
         per_epoch_s = (time.perf_counter() - t0) / k
         seq_per_s = len(dataset) / max(per_epoch_s, 1e-9)
         finite = np.isfinite(out["train"])
@@ -435,8 +483,9 @@ def run_h36m(args, model: Optional[ConvMixer] = None,
     ``init_state_dict`` (reference layout) replaces the seeded init, e.g.
     to start from the JAX package's init; ``--resume`` takes a
     ``train_state.pt`` or a JAX ``.ckpt``. ``batch_order_fn`` and
-    ``epoch_callback`` as in ``_train_and_evaluate``. Returns (history,
-    trainer)."""
+    ``epoch_callback`` as in ``_train_and_evaluate``. With ``--visualize``
+    an xyz run then writes GIFs of the first test action
+    (``export_h36m_visualizations``). Returns (history, trainer)."""
     device = resolve_device(getattr(args, "dev", "cuda"))
     xyz = args.loss_type == "mpjpe"
     dim_used = H36M_DIM_USED_XYZ if xyz else H36M_DIM_USED_ANGLE
@@ -474,6 +523,12 @@ def run_h36m(args, model: Optional[ConvMixer] = None,
             batch_order_fn=batch_order_fn, epoch_callback=epoch_callback)
     finally:
         logger.close()
+    if getattr(args, "visualize", False) and xyz:
+        first = action_names[0]
+        paths = export_h36m_visualizations(trainer, test_sets[first], log_dir,
+                                           first)
+        print(f"wrote {len(paths)} visualization GIFs to "
+              f"{log_dir}/visualization")
     return history, trainer
 
 

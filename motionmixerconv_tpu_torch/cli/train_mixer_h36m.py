@@ -12,8 +12,12 @@ the 66 xyz dims. ``--model_type mlp`` trains an MlpMixer of ``--pose_dim``
 dims (``build_mlp_mixer``, as the JAX CLI does). ``--epochs_per_dispatch
 K`` runs K epochs with one host read and checkpoints once a chunk; on the
 card every step and evaluation batch replays a captured CUDA graph
-whatever K. ``--visualize`` raises NotImplementedError naming its ROADMAP
-item (A16).
+whatever K. ``--visualize`` writes, after an mpjpe run, prediction-vs-gt
+GIFs of the first test action under ``<run>/visualization``; it needs
+matplotlib and Pillow, which are checked before the first epoch.
+``--visualize_from`` is parsed and unused, as in the JAX CLI and the
+reference (the GIFs come from the test split). ``MMC_PROFILE_DIR=D``
+traces the first epoch (or chunk) into a trace JSON in D.
 
 Usage: python -m motionmixerconv_tpu_torch.cli.train_mixer_h36m \\
     --fused_encoder --data_dir D --save_path S
@@ -68,7 +72,7 @@ def build_parser() -> argparse.ArgumentParser:
                         help="whole epochs (train + val + test) per host "
                              "read; checkpoints once per chunk")
     parser.add_argument("--visualize", action="store_true",
-                        help="export prediction-vs-gt GIFs (not ported)")
+                        help="export prediction-vs-gt GIFs after training")
     parser.add_argument("--resume", type=str, default=None,
                         help="train_state.pt to resume training from")
     parser.add_argument("--fused_encoder", action="store_true",
@@ -115,15 +119,23 @@ def parse_args(argv=None) -> argparse.Namespace:
     return args
 
 
-def _refuse_unported(args) -> None:
-    if args.visualize:
-        raise NotImplementedError(
-            "not ported yet: --visualize (ROADMAP queue A item 16)")
+def _require_gif_writer(args) -> None:
+    """Fail before the first epoch, not after the run, where --visualize
+    would write GIFs without matplotlib or Pillow."""
+    if not (args.visualize and args.loss_type == "mpjpe"):
+        return
+    for module in ("matplotlib", "PIL"):
+        try:
+            __import__(module)
+        except ImportError as e:
+            raise SystemExit(
+                f"--visualize needs matplotlib and Pillow to write its GIFs: "
+                f"{e}") from e
 
 
 def main(argv=None):
     args = parse_args(argv)
-    _refuse_unported(args)
+    _require_gif_writer(args)
     print(args)
     history, _ = run_h36m(args, model_name=f"h36_3d_{args.output_n}frames_ckpt")
     print(">>> Training finished",

@@ -7,8 +7,9 @@ forward-kinematics call; windows are then index gathers on the corpus.
 
 Splits: 0 train (S1,6,7,8,9), 1 val (S11), 2 test (S5, SRNN-seeded random
 windows: 128 per subaction for xyz via find_indices_256, 4 for angle via
-find_indices_srnn). The CSV files are read with ``np.loadtxt``; the JAX
-package's native C++ reader is a later port.
+find_indices_srnn). The CSV files are read by the native C++ reader
+(``_native``), a split's files at once on its thread pool; a file it
+refuses goes to ``np.loadtxt``, which reads it or raises.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import os
 import numpy as np
 import torch
 
+from .._native import read_csv_many_native, read_csv_native
 from ..geometry import expmap2xyz
 from .constants import (
     H36M_ACTIONS,
@@ -31,9 +33,29 @@ from .windows import WindowedCorpus, find_indices_256, find_indices_srnn
 SAMPLE_RATE = 2  # 50 Hz -> 25 Hz (dataset_h36m.py:36)
 
 
-def read_csv_floats(filename: str) -> np.ndarray:
-    """Read a comma-separated float matrix (data_utils.py:197-215)."""
+def _loadtxt(filename: str) -> np.ndarray:
     return np.loadtxt(filename, delimiter=",", dtype=np.float32, ndmin=2)
+
+
+def read_csv_floats(filename: str) -> np.ndarray:
+    """Read a comma-separated float matrix (data_utils.py:197-215) with the
+    native reader; a file it refuses goes to ``np.loadtxt``."""
+    arr = read_csv_native(filename)
+    return arr if arr is not None else _loadtxt(filename)
+
+
+def _read_corpus(paths: list[str]) -> dict[str, np.ndarray]:
+    """Every file of ``paths``, parsed at once on the native thread pool;
+    FileNotFoundError for a missing one, ``np.loadtxt`` for one the native
+    reader refuses."""
+    out = {}
+    for p, arr in zip(paths, read_csv_many_native(paths)):
+        if arr is None:
+            if not os.path.isfile(p):
+                raise FileNotFoundError(p)
+            arr = _loadtxt(p)
+        out[p] = arr
+    return out
 
 
 def _preprocess(seq: np.ndarray) -> np.ndarray:
@@ -67,14 +89,22 @@ class H36MDataset(WindowedCorpus):
         seq_len = input_n + output_n
         path_to_data = os.path.join(data_dir, "h3.6m", "dataset")
         acts = list(actions) if actions is not None else list(H36M_ACTIONS)
+        subs = H36M_SUBJECT_SPLITS[split]
+
+        def path(subj, action, subact):
+            return os.path.join(path_to_data, f"S{subj}",
+                                f"{action}_{subact}.txt")
+
+        raw_files = _read_corpus([path(subj, action, subact)
+                                  for subj in subs for action in acts
+                                  for subact in (1, 2)])
 
         def read(subj, action, subact):
-            return _preprocess(read_csv_floats(os.path.join(
-                path_to_data, f"S{subj}", f"{action}_{subact}.txt")))
+            return _preprocess(raw_files[path(subj, action, subact)])
 
         sequences: list[np.ndarray] = []
         local_starts: list[np.ndarray] = []  # per-sequence window starts
-        for subj in H36M_SUBJECT_SPLITS[split]:
+        for subj in subs:
             for action in acts:
                 if split <= 1:
                     for subact in (1, 2):

@@ -540,13 +540,24 @@ class Trainer:
         per = _per_sample_mpjpe(self._in_full_frame(gt22, pred), gt22) * 1000.0
         return per, per
 
+    def evaluate(self, corpus: WindowedCorpus, frames: torch.Tensor,
+                 batch_size: int, kind: str = "val"):
+        """The corpus's evaluation of ``kind`` (``evaluate_grouped`` with
+        one group): 'val' -> the scalar loss; 'h36m_xyz', 'h36m_angle',
+        'simple', 'amass22' -> (metric1, metric2), each a weighted mean over
+        the windows."""
+        m1, m2, nn_ = self.evaluate_grouped(
+            frames, corpus.window_starts, np.zeros(len(corpus), np.int64), 1,
+            batch_size, kind)
+        n = max(float(nn_[0]), 1.0)
+        if kind == "val":
+            return float(m1[0] / n)
+        return float(m1[0] / n), float(m2[0] / n)
+
     def validate(self, corpus: WindowedCorpus, frames: torch.Tensor,
                  batch_size: int) -> float:
         """Validation loss over the corpus."""
-        m1, _, nn_ = self.evaluate_grouped(
-            frames, corpus.window_starts, np.zeros(len(corpus), np.int64), 1,
-            batch_size, "val")
-        return float(m1[0] / max(nn_[0], 1.0))
+        return self.evaluate(corpus, frames, batch_size, "val")
 
 
 def _content_key(a) -> tuple:

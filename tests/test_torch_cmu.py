@@ -385,12 +385,8 @@ JAX_ONLY = {
     "train.load_checkpoint_meta": "models.torch_io.read_weights returns "
                                   "(state_dict, meta) of either format",
 }
-# whole subpackages and modules still queued (ROADMAP queue A)
-JAX_ONLY_MODULES = {
-    "viz": "A16, viz (no matplotlib or Pillow on the card's machine)",
-    "_native": "A20, the native CSV reader",
-    "profiling": "A18, the H100 measurement harness",
-}
+# whole subpackages and modules still queued (ROADMAP queue A): none left
+JAX_ONLY_MODULES: dict = {}
 
 
 def _jax_all(sub: str) -> list:

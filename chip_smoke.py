@@ -119,7 +119,20 @@ beside B1's device counters; (c) ``viz.galleries --max_gifs 0`` and
 the CPU at 1e-4 relative, B1-fwd on the device in the galleries'
 evaluations; (d) ``--visualize``: without matplotlib the CLI exits
 non-zero naming it before any epoch, with it the GIFs decode (launch
-counts reset just before (b) and read just after (c)).
+counts reset just before (b) and read just after (c)), [29] the port's
+runbook: every ``# runbook:`` block of ``docs/REPRODUCE_TORCH.md`` run
+as written under ``bash -e`` with ``DEV=cuda MAX_GIFS=0``, at the blocks'
+own widths, the schedule cut to one epoch and trial and the test actions
+to walking, on the synthetic corpora above, a few blocks at a time, this
+script standing in as their ``python`` to bring back each process's
+launch counts (``--as-python``); a block's non-zero exit or non-finite
+metric fails; B1's device launches in ``h36m-direct``'s training (at
+least one of each a train step); every trained checkpoint (the studies'
+trials, the AMASS block's JAX ``.ckpt``) served with
+``Predictor.from_checkpoint`` through B2, B3 or B4, no fallback named,
+against its plain forward and the kernel's core against float64 at 1e-4
+of max(1, max|ref|) (launch counts reset just before the blocks and read
+just after the serving, the blocks' own added).
 Then the whole run's seconds, one JSON line with every kernel's
 numbers, the card's name and power limit, and the result line. Any failure exits non-zero; with
 no CUDA device, or with the port's package missing beside this script, it
@@ -263,6 +276,25 @@ VIZ_ARGV = ["--loss_type", "mpjpe", "--fused_encoder", *EPD2,
 TOL_NATIVE = 1e-6  # of the largest magnitude, tests/test_native_csv.py:71
 TOL_VIZ = 1e-4     # card against CPU, relative
 VIZ_WINDOWS = 8    # predict_windows' windows
+# phase 29: every block of the port's runbook (docs/REPRODUCE_TORCH.md) as
+# a process of its own on the card, at the blocks' own widths, with only
+# the schedule and the corpus cut; RUNBOOK_LANES blocks at a time (a block
+# and the blocks reading its run directory in one lane); each block's
+# trained models served through the kernel RUNBOOK_KERNELS names
+RUNBOOK_MD = ROOT / "docs" / "REPRODUCE_TORCH.md"
+RUNBOOK_ENV = {"EPOCHS": "1", "TRIALS": "1", "TF_EPOCHS": "1",
+               "ACTIONS": "walking", "DEV": "cuda", "MAX_GIFS": "0"}
+RUNBOOK_AFTER = {"h36m-study-tables": "h36m-study"}  # reads its RUNS
+RUNBOOK_LANES = 3
+RUNBOOK_KERNELS = {
+    "h36m-study": "FusedConvMixerMC", "h36m-best-config": "FusedConvMixerMC",
+    "h36m-direct": "FusedConvMixer", "h36m-eval": "FusedMlpMixer",
+    "h36m-autoreg": "FusedConvMixerMC",
+    "h36m-autoreg-study": "FusedConvMixerMC", "ais-local": "FusedConvMixerMC",
+    "ais-global": "FusedConvMixerMC", "ais-autoreg": "FusedConvMixer",
+    "amass": "FusedMlpMixer"}
+RUNBOOK_BATCHES = (1, 32, 128)
+AS_PYTHON = "--as-python"  # chip_smoke.py as the blocks' python (phase 29)
 DEVICE = "cuda:0"  # the one card the script needs
 
 # the flagship: mmc-serve's defaults (bench.py's H36M ConvMixer shape)
@@ -2898,6 +2930,283 @@ def viz_path(torch, np, dev, card, work, counters) -> dict:
             "gal_s": gal_s}
 
 
+def runbook_blocks() -> dict:
+    """{name: bash text} of the ``# runbook:`` blocks of the port's
+    runbook, in their order."""
+    import re
+
+    return dict(re.findall(r"```bash\n# runbook: ([\w-]+)\n(.*?)```",
+                           RUNBOOK_MD.read_text(), re.S))
+
+
+def as_python(argv) -> None:
+    """``python`` for phase 29's blocks: runs ``-m <module> args`` or ``-``
+    (a script on standard input) as the interpreter does, with B1's device
+    launches counted around the trainers' calls (``counted_launches``),
+    and appends the process's launch counts as one JSON line to the file
+    ``$RUNBOOK_COUNTS`` when the program ends, however it ends."""
+    import os
+    import runpy
+
+    sys.path[0] = os.getcwd()  # what `python -m` and `python -` put first
+    from motionmixerconv_tpu_torch.ops import (conv_mixer, conv_mixer_mc,
+                                               harmonic, mlp_mixer)
+    from motionmixerconv_tpu_torch.train import Trainer
+
+    counters = {"conv_mixer_fused": conv_mixer.LAUNCHES,
+                "conv_mixer_mc": conv_mixer_mc.LAUNCHES,
+                "harmonic_dense_fwd": harmonic.LAUNCHES,
+                "harmonic_dense_bwd": harmonic.LAUNCHES_BWD,
+                "mlp_mixer_fused": mlp_mixer.LAUNCHES}
+    if argv[:1] == ["-m"] and len(argv) > 1:
+        sys.argv = argv[1:]
+
+        def run():
+            runpy.run_module(argv[1], run_name="__main__", alter_sys=True)
+    elif argv[:1] == ["-"]:
+        sys.argv = argv
+        code = compile(sys.stdin.read(), "<stdin>", "exec")
+
+        def run():
+            exec(code, {"__name__": "__main__"})
+    else:
+        fail(f"{AS_PYTHON} takes -m <module> or -, not {argv}")
+    with counted_launches(harmonic, Trainer, COUNTED_METHODS) as in_run:
+        try:
+            run()
+        finally:
+            with open(os.environ["RUNBOOK_COUNTS"], "a") as f:
+                f.write(json.dumps({
+                    "block": os.environ["RUNBOOK_BLOCK"], "argv": argv[:2],
+                    "launches": {k: c.value for k, c in counters.items()},
+                    "b1_device": in_run}) + "\n")
+
+
+def run_block(name: str, script: str, env: dict, runs, log) -> tuple:
+    """One block under ``bash -e`` from the checkout's root with ``env``
+    and ``RUNS=runs``: (seconds, its standard output). Fails on a non-zero
+    exit or a non-finite number in its output or in any ``metrics.jsonl``
+    under ``runs``."""
+    import math
+    import re
+
+    runs.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    r = subprocess.run(["bash", "-e", "-c", script], cwd=ROOT,
+                       env={**env, "RUNS": str(runs), "RUNBOOK_BLOCK": name},
+                       capture_output=True, text=True, timeout=900)
+    seconds = time.perf_counter() - t0
+    log.write_text(f"{r.stdout}\n--- stderr\n{r.stderr}")
+    if r.returncode != 0:
+        fail(f"runbook block {name}: exit {r.returncode} after {seconds:.1f}"
+             f" s; {log}: {r.stdout[-800:]!r} {r.stderr[-1500:]!r}")
+    bad = re.findall(r"(?<![\w.])[-+]?(?:nan|inf)(?![\w])", r.stdout, re.I)
+    for path in runs.rglob("metrics.jsonl"):
+        bad += [f"{path.parent.name} {rec['tag']} {rec['value']}"
+                for rec in map(json.loads, path.read_text().splitlines())
+                if not math.isfinite(rec["value"])]
+    if bad:
+        fail(f"runbook block {name}: non-finite metrics {bad[:10]}")
+    return seconds, r.stdout
+
+
+def runbook_inputs(torch, np, corpora) -> dict:
+    """Test windows of each corpus as the trainers feed them, keyed by the
+    model's input width: H36M xyz in meters (66), H36M expmap angles (48),
+    AIS keypoints (33), AMASS joints in meters (54); RUNBOOK_BATCHES[-1]
+    windows of 10 frames each."""
+    from motionmixerconv_tpu_torch.data import (AISDataset, AMASSDataset,
+                                                H36MDataset)
+    from motionmixerconv_tpu_torch.data.constants import (
+        AIS_DIM_USED, AIS_TEST_ACTIONS, AMASS_DIM_USED, H36M_DIM_USED_ANGLE,
+        H36M_DIM_USED_XYZ)
+
+    n = RUNBOOK_BATCHES[-1]
+
+    def spread(ds):
+        return np.stack([ds[int(i)] for i in
+                         np.linspace(0, len(ds) - 1, n)])[:, :10]
+
+    h36m = corpora["H36M_DATA"]
+    xyz = H36MDataset(h36m, 10, 25, 1, actions=["walking"], split=2)
+    ang = H36MDataset(h36m, 10, 25, 1, actions=["walking"], split=2,
+                      mode="angle")
+    ais = AISDataset(corpora["AIS_DATA"], 10, 10, 2, AIS_TEST_ACTIONS, 0.15)
+    am = AMASSDataset(corpora["AMASS_DATA"], 10, 25, 1, split=2)
+    am_idx = am.window_starts[np.linspace(0, len(am) - 1, n).astype(int),
+                              None] + np.arange(10)
+    return {66: torch.as_tensor(spread(xyz)[..., H36M_DIM_USED_XYZ] * 1e-3),
+            48: torch.as_tensor(spread(ang)[..., H36M_DIM_USED_ANGLE]),
+            33: torch.as_tensor(spread(ais)[..., AIS_DIM_USED]),
+            54: torch.as_tensor(am.frames[am_idx][..., AMASS_DIM_USED])}
+
+
+def serve_runbook_model(torch, dev, path, inputs) -> dict:
+    """A block's checkpoint served on the card with
+    ``Predictor.from_checkpoint``: a study trial's model rebuilt by its
+    study's builder from the stored args, any other from the checkpoint's
+    meta. Its answers at RUNBOOK_BATCHES against the plain forward (the
+    same weights, the plain encoder), relative to max(1, max|ref|).
+    Fails where the Predictor names a fallback or the answer is off."""
+    from types import SimpleNamespace
+
+    from motionmixerconv_tpu_torch.cli._runner import model_from_checkpoint_meta
+    from motionmixerconv_tpu_torch.models.torch_io import read_weights
+    from motionmixerconv_tpu_torch.serving import Predictor
+    from motionmixerconv_tpu_torch.sweep.conv_study import _build_model
+    from motionmixerconv_tpu_torch.train.state import load_weights
+
+    sd, meta = read_weights(str(path))
+    if any(p.startswith("trial") for p in path.parts):
+
+        def build(m):  # the direct study's windows, or the AR study's
+            return _build_model(SimpleNamespace(**m), m["pose_dim"],
+                                m.get("input_n_model", m.get("input_n")),
+                                m.get("output_n_model", m.get("output_n")))
+    else:
+        build = model_from_checkpoint_meta
+    pred = Predictor.from_checkpoint(build(meta), str(path), device=dev)
+    plain = build({**meta, "fused_encoder": False})
+    load_weights(plain, sd)
+    plain = plain.to(dev).eval()
+    # the model's width, as model_from_checkpoint_meta reads it
+    angle = meta.get("loss_type") == "angle" and "actions_to_consider" in meta
+    x = inputs[48 if angle else meta.get("pose_dim", 66)]
+    errs = {}
+    with torch.no_grad():
+        for b in RUNBOOK_BATCHES:
+            xb = x[:b].to(dev)
+            errs[b] = served_err(torch, pred.predict(xb), plain(xb))
+    torch.cuda.synchronize()
+    kernel = type(pred._fused).__name__
+    if pred.fused_fallback_reason is not None or not all(
+            e <= TOL_E2E for e in errs.values()):
+        fail(f"{path}: served by {kernel} ({pred.fused_fallback_reason}), "
+             f"against its plain forward {errs} (tol {TOL_E2E:g})")
+    return {"kernel": kernel, "err": max(errs.values()), "pred": pred,
+            "x": x}
+
+
+def runbook_path(torch, np, dev, card, work, corpora, counters) -> dict:
+    """Phase 29: every block of ``docs/REPRODUCE_TORCH.md`` run as written,
+    each under ``bash -e`` in a run directory of its own (``h36m-study-
+    tables`` in ``h36m-study``'s, after it), RUNBOOK_LANES blocks at a
+    time, with RUNBOOK_ENV (``DEV=cuda MAX_GIFS=0`` and the schedule cut
+    to one epoch and trial, the test actions to walking) on ``corpora``;
+    the blocks' ``python`` is this script (``as_python``), so that each
+    process's launch counts and B1's device launches in its trainers come
+    back. A block that exits non-zero or prints a non-finite metric fails
+    the phase. Then every checkpoint the blocks trained (the studies'
+    trials, ``amass_model.ckpt`` as written) is served on the card through
+    the kernel RUNBOOK_KERNELS names, against its plain forward and, the
+    kernel's core, against float64. Launch counts: the Python counters
+    reset just before the blocks and read just after the serving, plus
+    the blocks' own."""
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+
+    from motionmixerconv_tpu_torch.cli import train_mixer_h36m
+    from motionmixerconv_tpu_torch.data import H36MDataset
+
+    t_phase = time.perf_counter()
+    rdir = work / "runbook"
+    shutil.rmtree(rdir, ignore_errors=True)
+    (rdir / "bin").mkdir(parents=True)
+    shim = rdir / "bin" / "python"
+    shim.write_text(f'#!/bin/sh\nexec "{sys.executable}" '
+                    f'"{ROOT / "chip_smoke.py"}" {AS_PYTHON} "$@"\n')
+    shim.chmod(0o755)
+    counts = rdir / "counts.jsonl"
+    env = {**os.environ, **corpora, **RUNBOOK_ENV,
+           "PATH": f"{shim.parent}{os.pathsep}{os.environ['PATH']}",
+           "RUNBOOK_COUNTS": str(counts)}
+    blocks = runbook_blocks()
+    if set(blocks) != set(RUNBOOK_KERNELS) | set(RUNBOOK_AFTER):
+        fail(f"the runbook's blocks {list(blocks)} are not "
+             f"{sorted(set(RUNBOOK_KERNELS) | set(RUNBOOK_AFTER))}")
+    lanes = [[n, *(m for m, a in RUNBOOK_AFTER.items() if a == n)]
+             for n in blocks if n not in RUNBOOK_AFTER]
+    seconds = {}
+
+    def lane(names):
+        for n in names:
+            seconds[n] = run_block(n, blocks[n], env,
+                                   rdir / RUNBOOK_AFTER.get(n, n),
+                                   rdir / f"{n}.log")[0]
+
+    for c in counters.values():
+        c.reset()
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(RUNBOOK_LANES) as pool:
+        for job in [pool.submit(lane, names) for names in lanes]:
+            job.result()
+    blocks_s = time.perf_counter() - t0
+    records = [json.loads(ln) for ln in counts.read_text().splitlines()]
+    if {r["block"] for r in records} != set(blocks):
+        fail(f"runbook: launch counts of {sorted({r['block'] for r in records})}")
+    in_blocks = {k: sum(r["launches"][k] for r in records) for k in counters}
+    (b1,) = [r["b1_device"] for r in records if r["block"] == "h36m-direct"
+             and r["argv"][1].endswith(".train_mixer_h36m")]
+    n_train = len(H36MDataset(corpora["H36M_DATA"], 10, 25, 1, split=0))
+    steps = int(RUNBOOK_ENV["EPOCHS"]) * -(
+        -n_train // train_mixer_h36m.parse_args([]).batch_size)
+
+    # every trained checkpoint through its kernel
+    t0 = time.perf_counter()
+    inputs = runbook_inputs(torch, np, corpora)
+    served = {}
+    for n in blocks:
+        if n in RUNBOOK_AFTER:
+            continue
+        runs = rdir / n
+        paths = sorted(runs.rglob("train_state.pt")) + sorted(runs.glob("*.ckpt"))
+        if not paths:
+            fail(f"runbook block {n} left no checkpoint under {runs}")
+        for path in paths:
+            res = serve_runbook_model(torch, dev, path, inputs)
+            if res["kernel"] != RUNBOOK_KERNELS[n]:
+                fail(f"{path}: served by {res['kernel']}, not "
+                     f"{RUNBOOK_KERNELS[n]}")
+            served[f"{n} {path.relative_to(runs)}"] = res
+    torch.cuda.synchronize()
+    in_serving = {k: c.value for k, c in counters.items()}
+    launches = {k: in_blocks[k] + in_serving[k] for k in counters}
+    # the kernels' cores against float64: comparisons, not on the path
+    for res in served.values():
+        res["float64"] = core_against_float64(
+            torch, res.pop("pred")._fused, res.pop("x").to(dev),
+            RUNBOOK_BATCHES)
+    serve_s = time.perf_counter() - t0
+    phase_s = time.perf_counter() - t_phase
+    say(f"[29 runbook] {card} | the {len(blocks)} blocks of "
+        f"{RUNBOOK_MD.relative_to(ROOT)}, {RUNBOOK_LANES} processes at a "
+        f"time, {' '.join(f'{k}={v}' for k, v in RUNBOOK_ENV.items())}: "
+        "block s " + ", ".join(f"{n} {s:.1f}" for n, s in seconds.items())
+        + f"; all blocks {blocks_s:.1f} s | h36m-direct's training: B1's "
+        f"device launches {b1['_train_sums']} in {steps} train steps, "
+        f"{b1['_eval_sums']} in its evaluations | {len(served)} trained "
+        "checkpoints served, max abs err / max(1, max|ref|) at B = "
+        f"{RUNBOOK_BATCHES} against the plain forward, and the kernel's "
+        "core against float64: " + " ; ".join(
+            f"{name} via {v['kernel']} {v['err']:.3e}; {fmt_f64(v['float64'])}"
+            for name, v in served.items())
+        + f" (tol {TOL_E2E:g}) | serving {serve_s:.1f} s, phase "
+        f"{phase_s:.1f} s | launches on the path {launches} (in the blocks' "
+        f"processes {in_blocks})")
+    for k in B1_IN_RUN:
+        if b1["_train_sums"][k] < steps:
+            fail(f"{k}: {b1['_train_sums'][k]} device launches in "
+                 f"h36m-direct's {steps} train steps")
+    for k, v in launches.items():
+        if v < 1:
+            fail(f"{k} was not launched on the runbook path")
+    return {"launches": launches, "b1": b1, "steps": steps,
+            "seconds": seconds, "blocks_s": blocks_s, "phase_s": phase_s,
+            "served": {k: {"kernel": v["kernel"], "err": v["err"],
+                           "float64": v["float64"]}
+                       for k, v in served.items()}}
+
+
 def main() -> None:
     t_run = time.perf_counter()
     import numpy as np
@@ -3654,6 +3963,18 @@ def main() -> None:
     # galleries and predictions on the card, --visualize
     viz = viz_path(torch, np, dev, card, work, counters)
 
+    # [29] every block of the port's runbook on the card, each trained
+    # model served through its kernel
+    runbook = runbook_path(torch, np, dev, card, work, {
+        "H36M_DATA": str(data_dir), "AIS_DATA": str(work / "ais"),
+        "AMASS_DATA": str(amass_dir)}, counters)
+
+    def runbook_f64(kernel):
+        """The runbook's trained models served by ``kernel``, each
+        against float64."""
+        return {k: v["float64"] for k, v in runbook["served"].items()
+                if v["kernel"] == kernel}
+
     def timed(v, **extra):
         """A times entry of b1_times, b2_times or b4_times as the kernels
         line's keys."""
@@ -3679,7 +4000,8 @@ def main() -> None:
              v, max_abs_err=new["b2"][t][b]["err"])
              for t, c in new["b2_times"].items() for b, v in c.items()},
          "parity_trained_against_float64": parity["served"]["h36m"],
-         "mesh_trained_against_float64": mesh["float64"]["B2"]},
+         "mesh_trained_against_float64": mesh["float64"]["B2"],
+         "runbook_trained_against_float64": runbook_f64("FusedConvMixer")},
         {"name": "harmonic_dense_fwd", "route": "cuda",
          "source": "motionmixerconv_tpu_torch/csrc/harmonic_dense.cu",
          "replaces": "motionmixerconv_tpu/ops/pallas_harmonic.py:54",
@@ -3704,6 +4026,8 @@ def main() -> None:
          "parity_device_launches_per_train_step": {
              run: parity["b1"][run][B1_IN_RUN[0]] / parity["steps"]
              for run in ("h36m_fused", "h36m_sync_fused")},
+         "runbook_device_launches_per_train_step":
+             runbook["b1"]["_train_sums"][B1_IN_RUN[0]] / runbook["steps"],
          "new_shapes": {f"angle (D, n, E) {B1_ANGLE_SHAPE} R={r}": timed(
              t, max_abs_err=new["b1_fwd"][("direct", r)])
              for r, t in nb1["fwd"].items()}},
@@ -3733,6 +4057,8 @@ def main() -> None:
          "parity_device_launches_per_train_step": {
              run: parity["b1"][run][B1_IN_RUN[1]] / parity["steps"]
              for run in ("h36m_fused", "h36m_sync_fused")},
+         "runbook_device_launches_per_train_step":
+             runbook["b1"]["_train_sums"][B1_IN_RUN[1]] / runbook["steps"],
          "new_shapes": {
              f"angle (D, n, E) {B1_ANGLE_SHAPE} R={r} "
              f"{'dW+db+dx' if dx else 'dW+db'}": timed(t, err_over_max={
@@ -3749,6 +4075,7 @@ def main() -> None:
          "conv_study_grid_max_abs_err": studies["conv_study"]["grid_err"],
          "parity_trained_against_float64": parity["served"]["ar"],
          "mesh_trained_against_float64": mesh["float64"]["B3"],
+         "runbook_trained_against_float64": runbook_f64("FusedConvMixerMC"),
          "study": {"ms": b3_t[("study", 128)][0],
                    "plain_ms": b3_t[("study", 128)][1],
                    "bound_ms": b3_t[("study", 128)][2][0]},
@@ -3774,7 +4101,8 @@ def main() -> None:
              **{f"cmu B={b}": timed(v, err_against_float64=cmu["float64"][b][0])
                 for b, v in cmu["times"].items()}},
          "parity_trained_against_float64": parity["served"]["amass"],
-         "bf16_model_served_max_abs_err": bf16["b4_err"]},
+         "bf16_model_served_max_abs_err": bf16["b4_err"],
+         "runbook_trained_against_float64": runbook_f64("FusedMlpMixer")},
     ]
     for k in kernels:
         k["launches_by_path"] = {"serve": launches.get(k["name"], 0),
@@ -3792,7 +4120,8 @@ def main() -> None:
                                  "cmu": cmu["launches"][k["name"]],
                                  "mesh": mesh["launches"][k["name"]],
                                  "bf16": bf16["launches"][k["name"]],
-                                 "viz": viz["launches"][k["name"]]}
+                                 "viz": viz["launches"][k["name"]],
+                                 "runbook": runbook["launches"][k["name"]]}
     say(f"[run] {time.perf_counter() - t_run:.1f} s, the kernels' build "
         f"included | phases 21-23: {interchange['seconds']:.1f} s "
         f"interchange, conv_study calls "
@@ -3805,7 +4134,8 @@ def main() -> None:
         f" | phase 26 (mesh) a {mesh['seconds']['a']:.1f} s, b "
         f"{mesh['seconds']['b']:.1f} s, c {mesh['seconds']['c']:.1f} s, "
         f"phase 27 (bf16) {bf16['seconds']:.1f} s, phase 28 (viz) "
-        f"{viz['seconds']:.1f} s")
+        f"{viz['seconds']:.1f} s, phase 29 (runbook) "
+        f"{runbook['phase_s']:.1f} s")
     say(json.dumps({"kernels": kernels}))
     say(card)
     say(json.dumps({"ok": True, "device": {
@@ -3814,4 +4144,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == [AS_PYTHON]:
+        as_python(sys.argv[2:])
+    else:
+        main()

@@ -33,6 +33,7 @@ from ..profiling import profile_dir_from_env, profile_trace
 from ..serving import resolve_device
 from ..train import (AutoregressiveTrainer, Trainer, make_optimizer,
                      restore_checkpoint, save_checkpoint)
+from ..train.state import is_torch_file, save_jax_checkpoint
 
 STATE_FILE = "train_state.pt"  # full training state, for --resume
 WEIGHTS_FILE = "model.pt"      # reference-layout weights, for serving
@@ -293,9 +294,12 @@ def _train_and_evaluate(
     metrics of ``test_kind``, named ``metric_names``, the first times
     ``m1_scale``; in batches of ``test_batch_size``, by default
     ``args.batch_size_test``) -> history, logged scalars, checkpoint (also
-    to ``state_copy_path`` when given). ``teacher_forcing_epochs`` not None
-    selects the autoregressive trainer: teacher forcing while ``epoch`` is
-    below it, closed loop after. ``args.epochs_per_dispatch`` > 1 runs the
+    to ``state_copy_path`` when given, in the format its name reads as:
+    ``train_state.pt``'s payload for a ``.pt``/``.pth``, else the JAX
+    package's ``.ckpt``, which the JAX runner writes there).
+    ``teacher_forcing_epochs`` not None selects the autoregressive
+    trainer: teacher forcing while ``epoch`` is below it, closed loop
+    after. ``args.epochs_per_dispatch`` > 1 runs the
     epochs in chunks (``_train_and_evaluate_fused``).
 
     ``batch_order_fn(epoch)`` (epoch -> window permutation) replays an
@@ -318,9 +322,13 @@ def _train_and_evaluate(
         save_checkpoint(os.path.join(log_dir, STATE_FILE), trainer.model,
                         trainer.optimizer, epoch, meta=vars(args),
                         weights_path=os.path.join(log_dir, WEIGHTS_FILE))
-        if state_copy_path:
+        if state_copy_path and is_torch_file(state_copy_path):
             save_checkpoint(state_copy_path, trainer.model, trainer.optimizer,
                             epoch, meta=vars(args))
+        elif state_copy_path:
+            save_jax_checkpoint(state_copy_path, trainer.model,
+                                trainer.optimizer, epoch, meta=vars(args),
+                                seed=getattr(args, "seed", 0))
 
     epd = int(getattr(args, "epochs_per_dispatch", 1) or 1)
     if epd > 1 and batch_order_fn is not None:
@@ -688,8 +696,9 @@ def run_amass(args, model: Optional[MlpMixer] = None,
     group, in batches of ``args.batch_size`` as the reference) every epoch,
     and ``train_state.pt`` + ``model.pt`` every epoch or, with
     ``--epochs_per_dispatch``, every chunk (also to
-    ``args.model_path`` when set). ``init_state_dict`` (reference layout)
-    replaces the seeded init. Returns (history, trainer)."""
+    ``args.model_path`` when set: a JAX ``.ckpt`` unless the name ends in
+    ``.pt``/``.pth``, as ``read_weights`` reads it). ``init_state_dict``
+    (reference layout) replaces the seeded init. Returns (history, trainer)."""
     device = resolve_device(getattr(args, "dev", "cuda"))
     dataset, vald, test = (AMASSDataset(args.data_dir, args.input_n,
                                         args.output_n, args.skip_rate, split=s)

@@ -5,8 +5,11 @@ flag surface (amass/train_mixer_amass.py:203-267; hidden 128, 5 blocks,
 tokens 20, channels 128, pose_dim 54, gelu, batch 200) and the two-stage
 parser. ``--dev`` defaults to ``cuda`` and raises without a card; ``--dev
 cpu`` runs on the CPU. ``--epochs_per_dispatch K`` runs K epochs with one
-host read and checkpoints once a chunk. ``--model_path`` names an extra copy of ``train_state.pt``; unset
-by default (the JAX CLI's default points at its own ``.ckpt``).
+host read and checkpoints once a chunk. ``--model_path`` names an extra
+copy of each checkpoint, written as its name is read: a ``.pt``/``.pth``
+gets ``train_state.pt``'s payload, any other name the JAX package's
+``.ckpt`` (what the JAX CLI writes there). Unset by default, where the JAX
+CLI's default overwrites the committed ``checkpoints/amass_3d_25frames_ckpt``.
 
 Usage: python -m motionmixerconv_tpu_torch.cli.train_mixer_amass \\
     --data_dir D --save_path S
@@ -46,8 +49,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--gamma", type=float, default=0.1)
     parser.add_argument("--clip_grad", type=float, default=None)
     parser.add_argument("--model_path", type=str, default=None,
-                        help="also write train_state.pt here at every "
-                             "checkpoint")
+                        help="also write each checkpoint here: "
+                             "train_state.pt's payload for a .pt/.pth name, "
+                             "else a JAX .ckpt")
     parser.add_argument("--batch_size_test", type=int, default=256)
     parser.add_argument("--loss_type", type=str, default="mpjpe",
                         choices=["mpjpe"])

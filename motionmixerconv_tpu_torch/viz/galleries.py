@@ -116,7 +116,7 @@ def study_tables(study_dir: str, out_dir: str):
     return path
 
 
-def main(argv=None):
+def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--checkpoint",
                     help="trained H36M checkpoint (.pt or JAX .ckpt)")
@@ -134,6 +134,11 @@ def main(argv=None):
     if not args.checkpoint and not args.study_dir:
         ap.error("nothing to do: pass --checkpoint + --data_dir for "
                  "galleries and/or --study_dir for study tables")
+    return args
+
+
+def main(argv=None):
+    args = parse_args(argv)
     rows = None
     if args.checkpoint and args.data_dir:
         rows = h36m_galleries(args.checkpoint, args.data_dir, args.out,

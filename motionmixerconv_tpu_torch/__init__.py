@@ -30,7 +30,7 @@ that serves CPU tensors.
   (evaluation on the card; matplotlib renders on the host)
 - ``profiling`` — the card's ceilings, ``profile_trace``
   (``MMC_PROFILE_DIR`` traces a run's first epoch or chunk), the
-  throughput meter
+  program's spans (``span``, ``snapshot``)
 - ``_native``  — the C++ CSV reader the H3.6M and CMU corpora are read
   through, built with ``g++`` into ``build/native/`` at first use
 """

@@ -29,7 +29,8 @@ from ..data.constants import (AIS_DIM_USED, AIS_TEST_ACTIONS,
                               H36M_DIM_USED_XYZ, define_actions)
 from ..logging import MetricLogger
 from ..models import ConvMixer, MlpMixer
-from ..profiling import profile_dir_from_env, profile_trace
+from ..profiling import (epoch_numbers, profile_dir_from_env, profile_trace,
+                         snapshot)
 from ..serving import resolve_device
 from ..train import (AutoregressiveTrainer, Trainer, make_optimizer,
                      restore_checkpoint, save_checkpoint)
@@ -300,7 +301,13 @@ def _train_and_evaluate(
     ``teacher_forcing_epochs`` not None selects the autoregressive
     trainer: teacher forcing while ``epoch`` is below it, closed loop
     after. ``args.epochs_per_dispatch`` > 1 runs the
-    epochs in chunks (``_train_and_evaluate_fused``).
+    epochs in chunks (``_train_and_evaluate_fused``). Each epoch logs,
+    beside ``perf/epoch_s``, its change in the program's untraced spans
+    (``profiling.epoch_numbers``): ``perf/graph_launch_us``,
+    ``perf/step_host_us``, ``perf/epoch_host_share``, where they have a
+    count to divide by (on the CPU, where every step is an eager call, the
+    share is of the epoch's time outside the model's own compute); an
+    epoch traced under ``MMC_PROFILE_DIR`` logs none of them.
 
     ``batch_order_fn(epoch)`` (epoch -> window permutation) replays an
     explicit batch stream (the lockstep parity runs, ``parity_runs.py``);
@@ -349,8 +356,10 @@ def _train_and_evaluate(
             teacher_forcing_epochs=teacher_forcing_epochs)
 
     for epoch in range(start_epoch, args.n_epochs):
+        spans0 = snapshot()["untraced"]
+        trace_dir = profile_dir_from_env() if epoch == 0 else None
         t0 = time.perf_counter()
-        with profile_trace(profile_dir_from_env() if epoch == 0 else None):
+        with profile_trace(trace_dir):
             if autoreg:
                 tf = epoch < teacher_forcing_epochs
                 train_loss = trainer.train_epoch_ar(
@@ -375,6 +384,11 @@ def _train_and_evaluate(
         history["train_s"].append(train_s)
         history["epoch_s"].append(epoch_s)
         logger.add_scalar("perf/epoch_s", epoch_s, epoch)
+        numbers = {} if trace_dir else epoch_numbers(snapshot()["untraced"],
+                                                     spans0)
+        for name, value in numbers.items():
+            if value is not None:
+                logger.add_scalar(f"perf/{name}", value, epoch)
         tf_note = f"tf={epoch < teacher_forcing_epochs} " if autoreg else ""
         print(f"epoch {epoch}: {tf_note}train {train_loss:.4f} val "
               f"{val_loss:.4f} test {m1_avg:.4f} ({epoch_s:.1f}s, train "

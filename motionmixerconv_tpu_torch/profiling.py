@@ -2,12 +2,38 @@
 
 Counterpart of ``motionmixerconv_tpu/profiling.py``: the card's ceilings
 (the one copy ``chip_smoke.py`` reads for its roofline bounds), the
-physical-ceiling check, a ``torch.profiler`` trace context and the
-throughput meter.
+physical-ceiling check and a ``torch.profiler`` trace context; and the
+program's own spans, which the JAX package does not have.
 
 Trace a training run with ``MMC_PROFILE_DIR=/path``: the runners
 (``cli/_runner.py``) trace the first epoch, or the first chunk of
 ``--epochs_per_dispatch`` epochs, into a Chrome/Perfetto trace JSON there.
+
+Spans. ``span(name)`` times a stretch of the program's host work and keeps,
+per name, the count, the total and the self nanoseconds (the total less
+the spans opened inside it on the same thread), in one of two buckets:
+``traced`` where a torch profiler records at the span's entry, else
+``untraced``, so that numbers read from untraced work carry nothing of the
+tracer's cost. Under a recording profiler the span is also a
+``record_function("mmc.<name>")`` on the profiler's host timeline. With no
+profiler recording a span does two clock reads and a few integer adds under
+a lock: no device work, no device synchronisation. ``snapshot()`` reads the totals,
+``reset()`` clears them; ``epoch_numbers`` is the training CLIs' per-epoch
+reading of them. The spans, all outside any captured CUDA graph's body
+(a replay re-runs only device work):
+
+- ``train.epoch``: ``Trainer.train_epoch``, ``train_epoch_ar``, whole;
+- ``eval.pass``: ``Trainer.evaluate_grouped``, whole (``validate``,
+  ``evaluate`` and ``evaluate_ar`` go through it);
+- ``train.batches``: the epoch's shuffle, stacking and copy to the device;
+- ``eval.stack``: the evaluation stacks' content keys and, on a miss, the
+  stacking and copy;
+- ``train.step`` / ``eval.step``: one batch of ``StepGraph.run`` (the
+  batch's copies, the launch or eager body, and ``after``), holding one of
+  ``train.launch`` / ``eval.launch`` (a graph's replay), ``train.eager`` /
+  ``eval.eager`` (an eager body: the warm-up calls, every call on the CPU)
+  or ``capture`` (a graph built, and its first replay);
+- ``read``: each host read that waits for the device.
 """
 
 from __future__ import annotations
@@ -15,6 +41,7 @@ from __future__ import annotations
 import contextlib
 import os
 import sys
+import threading
 import time
 
 import numpy as np
@@ -123,20 +150,132 @@ def profile_dir_from_env() -> str | None:
     return os.environ.get("MMC_PROFILE_DIR") or None
 
 
-class ThroughputMeter:
-    """Sequences/sec accounting across an epoch."""
+# per bucket, per span name: [count, total ns, self ns]
+_TOTALS: dict = {"untraced": {}, "traced": {}}
+_LOCK = threading.Lock()  # guards _TOTALS, as ops/_build.Counter's lock
+_OPEN = threading.local()  # .stack: this thread's open spans, innermost last
 
-    def __init__(self) -> None:
-        self.reset()
 
-    def reset(self) -> None:
-        self._n = 0
-        self._t0 = time.perf_counter()
+def recording() -> bool:
+    """Whether a torch profiler records on this thread."""
+    return torch._C._autograd._profiler_enabled()
 
-    def add(self, n_sequences: int) -> None:
-        self._n += n_sequences
 
-    @property
-    def seq_per_sec(self) -> float:
-        dt = time.perf_counter() - self._t0
-        return self._n / dt if dt > 0 else 0.0
+def _stack() -> list:
+    try:
+        return _OPEN.stack
+    except AttributeError:
+        _OPEN.stack = []
+        return _OPEN.stack
+
+
+def _bump(bucket: dict, name: str, count: int, total_ns: int,
+          self_ns: int) -> None:
+    t = bucket.get(name)
+    if t is None:
+        t = bucket[name] = [0, 0, 0]
+    t[0] += count
+    t[1] += total_ns
+    t[2] += self_ns
+
+
+class span:
+    """``with span(name):`` times the enclosed host work into ``name``'s
+    totals (module docstring); nests per thread."""
+
+    __slots__ = ("name", "child_ns", "_traced", "_mark", "_t0")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self) -> "span":
+        self._traced = recording()
+        self._mark = None
+        if self._traced:
+            self._mark = torch.autograd.profiler.record_function(
+                "mmc." + self.name)
+            self._mark.__enter__()
+        self.child_ns = 0
+        _stack().append(self)
+        self._t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        ns = time.perf_counter_ns() - self._t0
+        stack = _stack()
+        stack.pop()
+        if self._mark is not None:
+            self._mark.__exit__(*exc)
+        with _LOCK:
+            _bump(_TOTALS["traced" if self._traced else "untraced"],
+                  self.name, 1, ns, ns - self.child_ns)
+        if stack:
+            stack[-1].child_ns += ns
+        return False
+
+
+def add(name: str, count: int, total_ns: int, children=()) -> None:
+    """Add ``count`` untraced spans of ``name`` that took ``total_ns``
+    together, as if each had been opened with ``span`` on this thread;
+    ``children``: the (name, count, total ns) of the spans inside them,
+    which hold none. A loop that times its iterations itself adds them
+    once, for the cost of a few clock reads an iteration."""
+    child_ns = 0
+    with _LOCK:
+        bucket = _TOTALS["untraced"]
+        for cname, ccount, cns in children:
+            _bump(bucket, cname, ccount, cns, cns)
+            child_ns += cns
+        _bump(bucket, name, count, total_ns, total_ns - child_ns)
+    stack = _stack()
+    if stack:
+        stack[-1].child_ns += total_ns
+
+
+def snapshot() -> dict:
+    """``{"untraced": {...}, "traced": {...}}``, each span name mapped to
+    ``{"count", "total_ns", "self_ns"}``."""
+    with _LOCK:
+        return {b: {n: {"count": c, "total_ns": t, "self_ns": s}
+                    for n, (c, t, s) in names.items()}
+                for b, names in _TOTALS.items()}
+
+
+def reset() -> None:
+    """Clear every total (spans open now still add theirs when they
+    close)."""
+    with _LOCK:
+        for names in _TOTALS.values():
+            names.clear()
+
+
+def epoch_numbers(now: dict, before: dict | None = None) -> dict:
+    """The training path's three numbers over the spans of one bucket of
+    ``snapshot()`` (``now``), less those of ``before``: ``graph_launch_us``,
+    the host's microseconds in one training step's graph launch;
+    ``step_host_us``, a training step's own host work outside it (the
+    batch's copies, the schedule's advance); ``epoch_host_share``, the
+    percentage of the epochs' and evaluations' host time outside their
+    steps and reads, of their time less the one-time work in them (eager
+    warm-ups, the first of which builds the kernels, and captures). Each
+    None where its denominator is 0. The totals are the process's, every
+    thread's together."""
+    before = before or {}
+
+    def get(name, field):
+        return (now.get(name, {}).get(field, 0)
+                - before.get(name, {}).get(field, 0))
+
+    launches, steps = get("train.launch", "count"), get("train.step", "count")
+    phases = get("train.epoch", "total_ns") + get("eval.pass", "total_ns")
+    host = (phases - get("train.step", "total_ns") - get("eval.step", "total_ns")
+            - get("read", "total_ns"))
+    steady = phases - (get("train.eager", "total_ns")
+                       + get("eval.eager", "total_ns") + get("capture", "total_ns"))
+    return {
+        "graph_launch_us": (get("train.launch", "total_ns") / launches / 1e3
+                            if launches else None),
+        "step_host_us": (get("train.step", "self_ns") / steps / 1e3
+                         if steps else None),
+        "epoch_host_share": host / steady * 100.0 if steady > 0 else None,
+    }

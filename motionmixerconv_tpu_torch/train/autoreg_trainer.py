@@ -35,6 +35,7 @@ from torch import nn
 
 from ..data.windows import WindowedCorpus, gather_windows
 from ..models.common import frozen_running_stats
+from ..profiling import span
 from .autoregressive import autoregressive_rollout
 from .loop import (PerSample, Trainer, _per_sample_auc_pck, _per_sample_euler,
                    _per_sample_joint_angle, _per_sample_l1_angle,
@@ -123,9 +124,12 @@ class AutoregressiveTrainer(Trainer):
         for each value of ``teacher_forcing``. A non-finite loss raises
         FloatingPointError (the reference's ``assert not isnan(loss)``,
         train_autoreg_mixer_h36m.py:256)."""
-        starts, w = self._epoch_batches(corpus, batch_size, [seed])
-        total, n = self._reduce(self._train_sums(
-            frames, starts[0], w[0], teacher_forcing, scan)).tolist()
+        with span("train.epoch"):
+            starts, w = self._epoch_batches(corpus, batch_size, [seed])
+            sums = self._reduce(self._train_sums(
+                frames, starts[0], w[0], teacher_forcing, scan))
+            with span("read"):
+                total, n = sums.tolist()
         mean_loss = total / max(n, 1.0)
         if not np.isfinite(mean_loss):
             # closed-loop gradients can explode through the feedback rollout

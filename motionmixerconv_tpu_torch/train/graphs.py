@@ -23,14 +23,23 @@ poison the capture. The studies run each trial on a stream of its own,
 off the legacy default stream (``sweep/engine.py``). The lock serializes
 only the host's enqueue of steps, which the interpreter lock serializes
 anyway; the card still runs both trials' kernels.
+
+Every call is a ``<kind>.step`` span of ``profiling``, holding a
+``<kind>.launch`` (the replay), ``<kind>.eager`` or ``capture`` span; with
+no profiler recording, ``run`` times its calls itself and adds the spans
+once. No span is opened inside the captured body.
 """
 
 from __future__ import annotations
 
+import contextlib
 import threading
+import time
 from typing import Callable, Optional, Sequence
 
 import torch
+
+from .. import profiling
 
 # eager calls on a side stream before the capture (PyTorch's recipe: lazy
 # initialisation -- a library's load, cuBLAS workspaces, an optimizer's
@@ -52,11 +61,13 @@ class StepGraph:
     device and replays the graph. A failed capture or replay raises; the
     runner never falls back to eager calls. Without ``capture`` every call
     runs eagerly on the current stream: the CPU's path, and the card's
-    eager path that the graph is held against.
+    eager path that the graph is held against. ``kind`` ("train" or
+    "eval") names the runner's spans.
     """
 
     def __init__(self, body: Callable[..., None], device: torch.device,
-                 sums_shape: Sequence[int], capture: bool):
+                 sums_shape: Sequence[int], capture: bool,
+                 kind: str = "train"):
         if capture and device.type != "cuda":
             raise ValueError(f"CUDA graphs need a CUDA device, not {device}")
         self.body = body
@@ -67,6 +78,9 @@ class StepGraph:
         self.static: Optional[list] = None
         self.eager_calls = 0
         self._side = torch.cuda.Stream(device) if capture else None
+        self._lock = GRAPH_LOCK if capture else contextlib.nullcontext()
+        self._step, self._launch, self._eager = (
+            f"{kind}.step", f"{kind}.launch", f"{kind}.eager")
 
     def run(self, *stacked: torch.Tensor,
             after: Optional[Callable[[], None]] = None) -> torch.Tensor:
@@ -74,36 +88,68 @@ class StepGraph:
         (calling ``after`` on the host after each batch), and return a copy
         of the sums on the device. No host read."""
         self.sums.zero_()
-        for i in range(stacked[0].shape[0]):
-            self._call([t[i] for t in stacked])
+        n = stacked[0].shape[0]
+        if profiling.recording():
+            for i in range(n):
+                with profiling.span(self._step):
+                    with self._lock:
+                        name, call = self._next([t[i] for t in stacked])
+                        with profiling.span(name):
+                            call()
+                    if after is not None:
+                        after()
+            return self.sums.clone()
+        # the steps tile the loop, and two clock reads a step time its
+        # inner span: the runner's usual one (a launch on the card, an eager
+        # call on the CPU) summed in a local, the few others listed
+        clock = time.perf_counter_ns
+        usual = self._launch if self.capture else self._eager
+        usual_ns, others = 0, []
+        t_loop = clock()
+        for i in range(n):
+            with self._lock:
+                name, call = self._next([t[i] for t in stacked])
+                t1 = clock()
+                call()
+                t2 = clock()
             if after is not None:
                 after()
+            if name is usual:
+                usual_ns += t2 - t1
+            else:
+                others.append((name, 1, t2 - t1))
+        if n:
+            inner = [(usual, n - len(others), usual_ns), *others]
+            profiling.add(self._step, n, clock() - t_loop,
+                          [c for c in inner if c[1]])
         return self.sums.clone()
 
-    def _call(self, batch) -> None:
+    def _next(self, batch):
+        """The next call on ``batch``: its span's name, and what runs it
+        (the batch copied into the graph's static inputs first)."""
         if not self.capture:
-            self.body(self.sums, *batch)
-            return
-        with GRAPH_LOCK:
-            self._call_on_card(batch)
-
-    def _call_on_card(self, batch) -> None:
+            return self._eager, lambda: self.body(self.sums, *batch)
         if self.graph is not None:
             for s, b in zip(self.static, batch):
                 s.copy_(b)
-            self.graph.replay()
-        elif self.eager_calls < WARMUP_CALLS:
-            main = torch.cuda.current_stream(self.device)
-            self._side.wait_stream(main)
-            with torch.cuda.stream(self._side):
-                self.body(self.sums, *batch)
-            main.wait_stream(self._side)
-            self.eager_calls += 1
-        else:
-            self.static = [b.clone() for b in batch]
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph, stream=self._side,
-                                  capture_error_mode="thread_local"):
-                self.body(self.sums, *self.static)
-            self.graph = graph
-            graph.replay()  # the capture ran nothing: this is the step
+            return self._launch, self.graph.replay
+        if self.eager_calls < WARMUP_CALLS:
+            return self._eager, lambda: self._warm_up(batch)
+        return "capture", lambda: self._capture_graph(batch)
+
+    def _warm_up(self, batch) -> None:
+        main = torch.cuda.current_stream(self.device)
+        self._side.wait_stream(main)
+        with torch.cuda.stream(self._side):
+            self.body(self.sums, *batch)
+        main.wait_stream(self._side)
+        self.eager_calls += 1
+
+    def _capture_graph(self, batch) -> None:
+        self.static = [b.clone() for b in batch]
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=self._side,
+                              capture_error_mode="thread_local"):
+            self.body(self.sums, *self.static)
+        self.graph = graph
+        graph.replay()  # the capture ran nothing: this is the step

@@ -58,6 +58,7 @@ from ..geometry.rotations import expmap2rotmat, rotmat2euler
 from ..metrics.metrics import auc_pck_from_dist, delta_2_gt
 from ..models.common import use_mesh
 from ..parallel.mesh import DataMesh, replicated_sharding
+from ..profiling import span
 from .graphs import StepGraph
 from .optim import Optimizer
 
@@ -283,28 +284,31 @@ class Trainer:
         permutation or None per epoch) replaces an epoch's shuffle: the
         order reaches a captured step only through these device buffers,
         which every replay reads."""
-        all_s, all_w = [], []
-        for seed, order in zip(seeds, orders or [None] * len(seeds)):
-            s, w = zip(*batch_starts(corpus, batch_size, shuffle=True,
-                                     seed=seed, order=order))
-            all_s.append(np.stack(s))
-            all_w.append(np.stack(w))
-        return (self._to_device(np.stack(all_s), torch.long),
-                self._to_device(np.stack(all_w), torch.float32))
+        with span("train.batches"):
+            all_s, all_w = [], []
+            for seed, order in zip(seeds, orders or [None] * len(seeds)):
+                s, w = zip(*batch_starts(corpus, batch_size, shuffle=True,
+                                         seed=seed, order=order))
+                all_s.append(np.stack(s))
+                all_w.append(np.stack(w))
+            return (self._to_device(np.stack(all_s), torch.long),
+                    self._to_device(np.stack(all_w), torch.float32))
 
     def _runner(self, key: tuple, frames: torch.Tensor, body,
                 sums_shape, scan: bool) -> StepGraph:
         """The step runner for ``body``: on a CUDA device with ``scan`` the
         graph cached under ``key`` and the corpus ``frames`` it reads (the
         graph holds the corpus, so its address stays that corpus's), else
-        an eager one."""
+        an eager one. ``key[0]`` ("train" or "eval") names its spans."""
+        kind = key[0]
         if not (scan and self.device.type == "cuda" and self._capture):
-            return StepGraph(body, self.device, sums_shape, capture=False)
+            return StepGraph(body, self.device, sums_shape, capture=False,
+                             kind=kind)
         key = (*key, frames.data_ptr(), tuple(frames.shape))
         runner = self._graphs.get(key)
         if runner is None:
             runner = self._graphs[key] = StepGraph(
-                body, self.device, sums_shape, capture=True)
+                body, self.device, sums_shape, capture=True, kind=kind)
         return runner
 
     def _train_sums(self, frames: torch.Tensor, starts: torch.Tensor,
@@ -339,9 +343,13 @@ class Trainer:
         captured step per batch, the JAX scan's counterpart; ``scan=False``
         launches each step op by op. ``order`` replaces the shuffle with an
         explicit window permutation (the lockstep parity runs)."""
-        starts, w = self._epoch_batches(corpus, batch_size, [seed], [order])
-        total, n = self._reduce(
-            self._train_sums(frames, starts[0], w[0], scan=scan)).tolist()
+        with span("train.epoch"):
+            starts, w = self._epoch_batches(corpus, batch_size, [seed],
+                                            [order])
+            sums = self._reduce(
+                self._train_sums(frames, starts[0], w[0], scan=scan))
+            with span("read"):
+                total, n = sums.tolist()
         return total / max(n, 1.0)
 
     def run_epochs_fused(self, corpus: WindowedCorpus, frames: torch.Tensor,
@@ -374,7 +382,9 @@ class Trainer:
                                  batch_size_test, test_kind, scan)
             rows.append(torch.cat([tr, va.flatten(), te.flatten()]))
         # the chunk's one all-reduce and one host read
-        out = self._reduce(torch.stack(rows)).cpu().numpy()
+        out = self._reduce(torch.stack(rows))
+        with span("read"):
+            out = out.cpu().numpy()
         tr, va = out[:, :2].astype(np.float64), out[:, 2:5]
         te = out[:, 5:].reshape(len(seeds), 3, n_groups)
         return {"train": tr[:, 0] / np.maximum(tr[:, 1], 1.0),
@@ -421,8 +431,9 @@ class Trainer:
         ``kind`` times the weights, and of the weights, per group (this
         rank's under a mesh); no host read."""
         per_sample = self._per_sample_for_kind(kind)
-        starts, w, gids = self._stack_eval_batches(
-            window_starts, group_ids, batch_size)
+        with span("eval.stack"):
+            starts, w, gids = self._stack_eval_batches(
+                window_starts, group_ids, batch_size)
 
         def body(sums, s, ww, g):
             with torch.no_grad():
@@ -444,9 +455,12 @@ class Trainer:
         arrays (train_mixer_h36m.py:311-323 evaluates each action with its
         own loader; here every group's windows share one corpus). ``scan``
         as in ``train_epoch``."""
-        out = self._reduce(self._eval_sums(
-            frames, window_starts, group_ids, n_groups, batch_size, kind,
-            scan)).cpu().numpy()
+        with span("eval.pass"):
+            out = self._reduce(self._eval_sums(
+                frames, window_starts, group_ids, n_groups, batch_size, kind,
+                scan))
+            with span("read"):
+                out = out.cpu().numpy()
         return out[0], out[1], out[2]
 
     def _per_sample_for_kind(self, kind: str) -> PerSample:

@@ -143,3 +143,57 @@ def test_step_graphs_take_turns_across_threads(card):
         total, replayed = results[tag]
         # each call sums 2^16 draws of 0 or 2: about 2^16 a call
         assert replayed and abs(total / n / (1 << 16) - 1) < 0.05, results
+
+
+@pytest.mark.card
+def test_a_captured_epoch_records_its_capture_and_launches(card):
+    """The program's spans of a training epoch on the card: the step
+    graph's eager warm-up calls, one capture and a launch for every step
+    after it, each inside its step; the next epoch launches every step;
+    under a recording profiler the spans go to the traced bucket."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from motionmixerconv_tpu_torch import profiling
+    from motionmixerconv_tpu_torch.data import WindowedCorpus
+    from motionmixerconv_tpu_torch.data.constants import H36M_DIM_USED_XYZ
+    from motionmixerconv_tpu_torch.models import ConvMixer
+    from motionmixerconv_tpu_torch.train import Trainer
+    from motionmixerconv_tpu_torch.train.graphs import WARMUP_CALLS
+
+    model = ConvMixer(num_blocks=1, dimPosIn=66, dimPosEmb=8, dimPosOut=66,
+                      in_nTP=10, out_nTP=25, use_se=True,
+                      encoder_n_harmonic_functions=4).to(card)
+    trainer = Trainer(model, make_optimizer(model.parameters(), lr=1e-3),
+                      loss_type="mpjpe", dim_used=H36M_DIM_USED_XYZ,
+                      input_n=10, output_n=25, input_scale=1e-3)
+    frames = np.random.RandomState(5).randn(300, 96).astype(np.float32) * 300
+    steps, bs = 7, 16
+    corpus = WindowedCorpus(frames, np.arange(steps * bs) * 2, 35)
+    on_card = torch.from_numpy(frames).to(card)
+
+    def counts(bucket):
+        return {k: v["count"] for k, v in profiling.snapshot()[bucket].items()}
+
+    profiling.reset()
+    trainer.train_epoch(corpus, on_card, bs, seed=0)
+    assert counts("untraced") == {
+        "train.epoch": 1, "train.batches": 1, "train.step": steps,
+        "train.eager": WARMUP_CALLS, "capture": 1,
+        "train.launch": steps - WARMUP_CALLS - 1, "read": 1}
+    profiling.reset()
+    trainer.train_epoch(corpus, on_card, bs, seed=1)
+    u = profiling.snapshot()["untraced"]
+    assert counts("untraced") == {"train.epoch": 1, "train.batches": 1,
+                                  "train.step": steps, "train.launch": steps,
+                                  "read": 1}
+    assert u["train.step"]["self_ns"] == (u["train.step"]["total_ns"]
+                                          - u["train.launch"]["total_ns"])
+    profiling.reset()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        trainer.train_epoch(corpus, on_card, bs, seed=2)
+    assert counts("untraced") == {}
+    assert counts("traced")["train.launch"] == steps
+    names = {e.name for e in prof.events()}
+    assert {"mmc.train.epoch", "mmc.train.step", "mmc.train.launch",
+            "mmc.read"} <= names

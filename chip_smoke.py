@@ -132,7 +132,20 @@ trials, the AMASS block's JAX ``.ckpt``) served with
 ``Predictor.from_checkpoint`` through B2, B3 or B4, no fallback named,
 against its plain forward and the kernel's core against float64 at 1e-4
 of max(1, max|ref|) (launch counts reset just before the blocks and read
-just after the serving, the blocks' own added).
+just after the serving, the blocks' own added), [30] the single-channel
+ConvBlock kernels (``ops/conv_block.py``) at the flagship's training and
+evaluation shapes, the AIS autoregressive (5,5), an even (2,2) and the
+conv study's widest (9,29) kernel, each against its plain version and
+float64 and bit-identical over repeats; their device counters against
+the calls, graph replays included, and a captured forward and backward
+against the eager one bit for bit; a block's forward and backward
+launching the two kernels and nothing else; their times beside their
+bound, the plain versions and cuDNN's convolution with the eager
+activation (the modules' route, from Python and on the device); and the flagship's training step (the
+CLI's 'same' padding) on graphs against its eager steps, its kernels a
+step by both routes and the backward kernel's launches a step. Phase 30
+runs in a process of its own, which is also how to run it alone:
+``python3 -c 'import chip_smoke; chip_smoke.conv_block_alone()'``.
 Then the whole run's seconds, one JSON line with every kernel's
 numbers, the card's name and power limit, and the result line. Any failure exits non-zero; with
 no CUDA device, or with the port's package missing beside this script, it
@@ -295,6 +308,22 @@ RUNBOOK_KERNELS = {
     "amass": "FusedMlpMixer"}
 RUNBOOK_BATCHES = (1, 32, 128)
 AS_PYTHON = "--as-python"  # chip_smoke.py as the blocks' python (phase 29)
+# phase 30: the single-channel ConvBlock kernels at the shapes the paths
+# give them: (tag, N, T, E, taps, activation, backward too)
+CB_CASES = (
+    ("flagship conv1", 50, 10, 50, (1, 3), "mish", True),
+    ("flagship conv2", 50, 10, 50, (3, 1), "mish", True),
+    ("flagship eval conv1", 256, 10, 50, (1, 3), "mish", False),
+    ("flagship eval conv2", 256, 10, 50, (3, 1), "mish", False),
+    ("ais_autoregressive 5x5", 50, 10, 50, (5, 5), "mish", True),
+    ("even 2x2 gelu", 50, 10, 50, (2, 2), "gelu", True),
+    ("conv_study 9x29", 50, 10, 50, (9, 29), "mish", True),
+)
+CB_REPEATS = 20  # launches of each case that must agree bit for bit
+TOL_CB = 1e-5    # of the largest magnitude: f32 taps and the batch's
+                 # 25,000-term weight and bias sums in another order than
+                 # cuDNN's
+CB_REPLAYS = 5   # replays of a captured forward and backward
 DEVICE = "cuda:0"  # the one card the script needs
 
 # the flagship: mmc-serve's defaults (bench.py's H36M ConvMixer shape)
@@ -3207,6 +3236,351 @@ def runbook_path(torch, np, dev, card, work, corpora, counters) -> dict:
                        for k, v in served.items()}}
 
 
+def cb_inputs(torch, dev, n, t, e, k, seed):
+    """x, g (N, 1, T, E), taps of unit scale over their count, bias 0.1."""
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(n, 1, t, e, generator=gen).to(dev)
+    g = torch.randn(n, 1, t, e, generator=gen).to(dev)
+    w = (torch.randn(1, 1, *k, generator=gen) / (k[0] * k[1]) ** 0.5).to(dev)
+    return x, g, w, torch.full((1,), 0.1, device=dev)
+
+
+def cb_work(n, t, e, k, backward: bool):
+    """(bytes, operations) of one call: x in and a out forward; x and g in,
+    dx out, the taps' and bias' partial sums and the taps backward.
+    Operations: the taps' multiply-adds (2 a tap) and the bias forward,
+    and backward those of z again, dx and dw, the bias sum, and dz's
+    product; the activation's few operations an element are left out
+    (the bound is the bytes' by far)."""
+    plane, taps = n * t * e, k[0] * k[1]
+    if not backward:
+        return 4 * (2 * plane + taps + 1), plane * (2 * taps + 1)
+    return (4 * (3 * plane + 2 * n * (taps + 1) + 2 * taps + 2),
+            plane * (6 * taps + 3))
+
+
+def device_total_us(torch, fn, reps: int = 20):
+    """Device time per call of ``fn`` (microseconds): every device kernel
+    and copy of a torch.profiler trace of ``reps`` calls, summed; None
+    where the trace shows no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):  # a trace that records no device kernel is taken again
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.time_range.elapsed_us() for e in prof.events()
+                    if e.device_type == DeviceType.CUDA
+                    and not getattr(e, "is_user_annotation", False))
+        if total > 0:
+            return total / reps
+    return None
+
+
+def check_conv_block(torch, conv_block, dev, case) -> dict:
+    """One case of CB_CASES: the kernels against the plain versions in
+    float32 (cuDNN, TF32 off) and float64, CB_REPEATS launches bit for
+    bit, then their times beside the plain versions', the modules' route
+    (cuDNN's convolution and the eager activation, autograd backward: from
+    Python, and its kernels' device time a call) and the bound."""
+    import torch.nn.functional as F
+
+    from motionmixerconv_tpu_torch.ops.activations import get_activation
+
+    tag, n, t, e, k, act, backward = case
+    x, g, w, b = cb_inputs(torch, dev, n, t, e, k, SEED + 30)
+    counter = torch.empty(1, device=dev, dtype=torch.int32)
+    plain_before = conv_block.PLAIN_CALLS.value
+
+    def fwd():
+        return conv_block.conv_block_fwd(x, w, b, act, counter)
+
+    def bwd():
+        return conv_block.conv_block_bwd(x, g, w, b, act, counter)
+
+    outs = [fwd() for _ in range(CB_REPEATS)]
+    grads = [bwd() for _ in range(CB_REPEATS)] if backward else []
+    torch.cuda.synchronize()
+    if not all(torch.equal(o, outs[0]) for o in outs) or not all(
+            all(torch.equal(u, v) for u, v in zip(gr, grads[0]))
+            for gr in grads):
+        fail(f"conv_block {tag}: launches differ")
+    d = [v.double() for v in (x, g, w, b)]
+    want = {"a": conv_block.conv_block_plain(d[0], d[2], d[3], act)}
+    got = {"a": outs[0]}
+    plain = {"a": conv_block.conv_block_plain(x, w, b, act)}
+    if backward:
+        for name, ref, gt, pl in zip(
+                ("dx", "dw", "db"),
+                conv_block.conv_block_bwd_plain(*d[:3], d[3], act),
+                grads[0], conv_block.conv_block_bwd_plain(x, g, w, b, act)):
+            want[name], got[name], plain[name] = ref, gt, pl
+    errs = {}
+    for name, ref in want.items():
+        scale = float(ref.abs().max())
+        errs[name] = (float((got[name].double() - ref).abs().max()) / scale,
+                      float((plain[name].double() - ref).abs().max()) / scale)
+        if not errs[name][0] <= TOL_CB:
+            fail(f"conv_block {tag}: {name} {errs[name][0]:.3e} of the "
+                 f"largest from float64 (tol {TOL_CB:g})")
+    if conv_block.PLAIN_CALLS.value != plain_before:
+        fail(f"conv_block {tag}: a CUDA tensor took a plain version")
+
+    xr, wr, br = (v.clone().requires_grad_() for v in (x, w, b))
+    fn = get_activation(act)
+    times = {"fwd": {
+        "ms": cuda_ms(torch, fwd), "device_us": device_us(
+            torch, fwd, "conv_block_fwd_kernel"),
+        "plain_ms": cuda_ms(torch, lambda: conv_block.conv_block_plain(
+            x, w, b, act)),
+        "bound": bound(*cb_work(n, t, e, k, False))}}
+    def library():
+        if backward:
+            return torch.autograd.grad(
+                fn(F.conv2d(xr, wr, br, padding="same")), (xr, wr, br), g)
+        return conv_block.conv_block_plain(x, w, b, act)
+
+    if backward:
+        times["bwd"] = {
+            "ms": cuda_ms(torch, bwd), "device_us": device_us(
+                torch, bwd, "conv_block_bwd_kernel"),
+            "plain_ms": cuda_ms(torch, lambda: conv_block.conv_block_bwd_plain(
+                x, g, w, b, act)),
+            "bound": bound(*cb_work(n, t, e, k, True))}
+        times["fwd+bwd"] = {
+            "ms": cuda_ms(torch, lambda: (fwd(), bwd())),
+            "device_us": times["fwd"]["device_us"] + times["bwd"]["device_us"]
+            if None not in (times["fwd"]["device_us"],
+                            times["bwd"]["device_us"]) else None,
+            "library_ms": cuda_ms(torch, library),
+            "library_device_us": device_total_us(torch, library)}
+    else:
+        times["fwd"]["library_ms"] = times["fwd"]["plain_ms"]
+        times["fwd"]["library_device_us"] = device_total_us(torch, library)
+    return {"err": errs, "times": times}
+
+
+def cb_kernel_names(torch, block, x, g) -> list:
+    """The device kernels of one forward and backward of ``block`` (a
+    trace that records no device kernel is taken again, as in
+    ``device_us``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    xr = x.clone().requires_grad_()
+    params = list(block.parameters())
+    torch.autograd.grad(block(xr), [xr, *params], g)  # warm
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.autograd.grad(block(xr), [xr, *params], g)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA
+                 and not getattr(e, "is_user_annotation", False)]
+        if names:
+            return names
+    return names
+
+
+def cb_graph_and_counters(torch, conv_block, dev) -> dict:
+    """The device counters against the wrappers' calls (eager calls, the
+    capture, CB_REPLAYS replays) and a captured forward and backward
+    through the Function against the eager one, bit for bit."""
+    x, g, w, b = cb_inputs(torch, dev, 50, 10, 50, (1, 3), SEED + 31)
+    xs, ws, bs = (v.clone().requires_grad_() for v in (x, w, b))
+
+    def step():
+        a = conv_block.conv_block(xs, ws, bs, "mish")
+        return (a, *torch.autograd.grad(a, (xs, ws, bs), g))
+
+    dev0 = conv_block.device_launches()
+    calls0 = (conv_block.LAUNCHES.value, conv_block.LAUNCHES_BWD.value)
+    # every call on the capture's stream: the leaves' gradient nodes keep
+    # the stream of their first backward, which a capture may not wait on
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        eager = step()
+        for _ in range(3):
+            step()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            captured = step()
+        after_capture = conv_block.device_launches()
+        for _ in range(CB_REPLAYS):
+            graph.replay()
+    torch.cuda.current_stream(dev).wait_stream(side)
+    torch.cuda.synchronize()
+    bits = all(torch.equal(u, v) for u, v in zip(captured, eager))
+    dev1 = conv_block.device_launches()
+    calls = (conv_block.LAUNCHES.value - calls0[0],
+             conv_block.LAUNCHES_BWD.value - calls0[1])
+    counted = tuple(v - u for u, v in zip(dev0, dev1))
+    in_capture = tuple(v - u for u, v in zip(dev0, after_capture))
+    # the capture calls the wrappers but runs nothing; each replay runs both
+    if not (calls == (5, 5) and in_capture == (4, 4)
+            and counted == (4 + CB_REPLAYS, 4 + CB_REPLAYS) and bits):
+        fail(f"conv_block under a graph: wrapper calls {calls}, device "
+             f"launches {in_capture} before and {counted} after "
+             f"{CB_REPLAYS} replays, captured equal to eager {bits}")
+    return {"calls": calls, "device": counted, "bit_for_bit": bits}
+
+
+def conv_block_path(torch, np, dev, card) -> dict:
+    """Phase 30: the single-channel ConvBlock kernels (see the docstring)."""
+    from motionmixerconv_tpu_torch.data.constants import H36M_DIM_USED_XYZ
+    from motionmixerconv_tpu_torch.models import ConvBlock, ConvMixer
+    from motionmixerconv_tpu_torch.ops import conv_block
+    from motionmixerconv_tpu_torch.train import Trainer, make_optimizer
+
+    t_phase = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cases = {c[0]: check_conv_block(torch, conv_block, dev, c)
+             for c in CB_CASES}
+    graph = cb_graph_and_counters(torch, conv_block, dev)
+
+    # one flagship block's forward and backward: the two kernels and no
+    # other; the modules' route beside it (a CUDA tensor taken as a CPU
+    # one's would be)
+    block = ConvBlock(1, (1, 3), activation="mish").to(dev)
+    x, g, _, _ = cb_inputs(torch, dev, 50, 10, 50, (1, 3), SEED + 32)
+    names = cb_kernel_names(torch, block, x, g)
+    real_takes = conv_block.takes
+    conv_block.takes = lambda x, weight: False
+    try:
+        module_names = cb_kernel_names(torch, block, x, g)
+    finally:
+        conv_block.takes = real_takes
+    if sorted(set(names)) != sorted(n for n in set(names)
+                                    if "conv_block_" in n) or len(names) != 2:
+        fail(f"conv_block: a block's forward and backward ran {names}")
+
+    # the flagship's training step as the CLI builds it ('same' padding):
+    # the graph against eager steps, then kernels a step by both routes
+    def make_trainer():
+        model = ConvMixer(**dict(FLAGSHIP, conv1_padding=None,
+                                 regularization=0.0),
+                          encoder_fused=True,
+                          generator=torch.Generator().manual_seed(SEED + 33))
+        model = model.to(dev)
+        return Trainer(model, make_optimizer(model.parameters(), lr=1e-3,
+                                             **GRAPH_SCHEDULE),
+                       loss_type="mpjpe", dim_used=H36M_DIM_USED_XYZ,
+                       input_n=10, output_n=25, input_scale=1e-3)
+
+    frames, starts, w = random_batches(torch, dev, SEED + 33, 5000, 96, 300.0,
+                                       35, 3 * GRAPH_STEPS, TRAIN_BATCH)
+    ev_starts = np.random.default_rng(SEED + 33).integers(0, 5000 - 35, 900)
+    vs_eager = graph_vs_eager(
+        torch, make_trainer, frames, starts, w, [None],
+        [("val", 1, frames, ev_starts, np.zeros(900, np.int64), TRAIN_BATCH)])
+    check_graph("flagship through conv_block", vs_eager)
+    steps = {}
+    for route in ("kernel", "modules"):
+        if route == "modules":
+            conv_block.takes = lambda x, weight: False
+        try:
+            tr = make_trainer()
+            before = conv_block.device_launches()
+            steps[route] = profile_train(
+                torch, lambda lo, hi: tr._train_sums(
+                    frames, starts[lo:hi], w[lo:hi], None, True).cpu(),
+                GRAPH_STEPS, TRAIN_BATCH)
+            bwd = conv_block.device_launches()[1] - before[1]
+            steps[route]["bwd_per_step"] = bwd / (3 * GRAPH_STEPS)
+        finally:
+            conv_block.takes = real_takes
+    if steps["kernel"]["bwd_per_step"] != 2 * FLAGSHIP["num_blocks"] or \
+            steps["modules"]["bwd_per_step"] != 0:
+        fail(f"conv_block: backward launches a flagship step "
+             f"{steps['kernel']['bwd_per_step']} (modules' route "
+             f"{steps['modules']['bwd_per_step']})")
+    seconds = time.perf_counter() - t_phase
+
+    def fmt_case(tag, c):
+        errs = ", ".join(f"{k} {v[0]:.2e} (plain {v[1]:.2e})"
+                         for k, v in c["err"].items())
+        ts = "; ".join(
+            f"{k} {v['ms']:.4f} ms" + (
+                f" (device {v['device_us']:.2f} us)"
+                if v.get("device_us") is not None else "")
+            + (f", plain {v['plain_ms']:.4f}" if "plain_ms" in v else "")
+            + (f", library {v['library_ms']:.4f}" if "library_ms" in v else "")
+            + (f" (device {v['library_device_us']:.2f} us)"
+               if v.get("library_device_us") is not None else "")
+            + (f", bound {v['bound'][0]:.5f} ({v['bound'][1]})"
+               if "bound" in v else "")
+            for k, v in c["times"].items())
+        return f"{tag}: {errs} | {ts}"
+
+    say(f"[30 conv_block] {card} | of the largest from float64 (tol "
+        f"{TOL_CB:g}), {CB_REPEATS} launches bit-identical: "
+        + " ;; ".join(fmt_case(t, c) for t, c in cases.items())
+        + f" | wrapper calls {graph['calls']}, device launches "
+        f"{graph['device']} ({CB_REPLAYS} replays), captured = eager "
+        f"{graph['bit_for_bit']} | a block's kernels: {names}; the modules' "
+        f"route: {len(module_names)} kernels ({sorted(set(module_names))}) | "
+        f"flagship step, graph against eager: {fmt_graph(vs_eager)} | "
+        + " | ".join(
+            f"{route}: {st['kernels']:.1f} kernels/step, backward launches "
+            f"a step {st['bwd_per_step']:.1f}, step {st['step_ms']:.3f} ms, "
+            f"device busy {st['busy_ms']:.3f} ms/step, idle "
+            f"{st['idle']:.3f}, {st['samples_per_s']:.1f} samples/s"
+            for route, st in steps.items())
+        + f" | phase {seconds:.1f} s")
+    return {"cases": cases, "graph": graph, "steps": steps,
+            "seconds": seconds}
+
+
+def conv_block_alone() -> None:
+    """Phase 30 alone on the card, then the result line."""
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch sees no CUDA device")
+    sys.path.insert(0, str(ROOT))
+    card = card_line()
+    dev = torch.device(DEVICE)
+    torch.cuda.set_device(dev)
+    res = conv_block_path(torch, np, dev, card)
+    say(json.dumps({"conv_block": {
+        "cases": res["cases"], "steps": {
+            k: {kk: vv for kk, vv in v.items() if kk != "top"}
+            for k, v in res["steps"].items()}, "seconds": res["seconds"]}}))
+    say(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+def conv_block_child() -> dict:
+    """Phase 30 in a process of its own (``conv_block_alone``), its lines
+    echoed; its results. In the process that ran phases 1-29 the
+    profiler's traces recorded no device kernel (twice, in whole runs on
+    the H100), while phase 30 alone records them."""
+    res = subprocess.run(
+        [sys.executable, "-c", "import chip_smoke; chip_smoke.conv_block_alone()"],
+        cwd=ROOT, capture_output=True, text=True, timeout=1200)
+    found = None
+    for line in res.stdout.splitlines():
+        if line.startswith('{"conv_block"'):
+            found = json.loads(line)["conv_block"]
+        elif not line.startswith('{"ok"'):
+            say(line)
+    if res.returncode != 0 or found is None:
+        fail(f"phase 30's process exited {res.returncode}: "
+             f"{res.stderr.strip()[-2000:]}")
+    return found
+
+
 def main() -> None:
     t_run = time.perf_counter()
     import numpy as np
@@ -3969,6 +4343,9 @@ def main() -> None:
         "H36M_DATA": str(data_dir), "AIS_DATA": str(work / "ais"),
         "AMASS_DATA": str(amass_dir)}, counters)
 
+    # [30] the single-channel ConvBlock kernels
+    cb = conv_block_child()
+
     def runbook_f64(kernel):
         """The runbook's trained models served by ``kernel``, each
         against float64."""
@@ -4122,6 +4499,21 @@ def main() -> None:
                                  "bf16": bf16["launches"][k["name"]],
                                  "viz": viz["launches"][k["name"]],
                                  "runbook": runbook["launches"][k["name"]]}
+    for direction in ("fwd", "bwd"):
+        kernels.append({
+            "name": f"conv_block_{direction}", "route": "cuda",
+            "source": "motionmixerconv_tpu_torch/csrc/conv_block.cu",
+            "replaces": None, "max_err_of_largest": max(
+                v[0] for c in cb["cases"].values() for n, v in c["err"].items()
+                if (n == "a") == (direction == "fwd")),
+            "by_case": {tag: {
+                "ms": c["times"][direction]["ms"],
+                "device_us": c["times"][direction]["device_us"],
+                "plain_ms": c["times"][direction]["plain_ms"],
+                "bound_ms": c["times"][direction]["bound"][0],
+                "bound_by": c["times"][direction]["bound"][1]}
+                for tag, c in cb["cases"].items() if direction in c["times"]},
+            "train_step_launches": cb["steps"]["kernel"]["bwd_per_step"]})
     say(f"[run] {time.perf_counter() - t_run:.1f} s, the kernels' build "
         f"included | phases 21-23: {interchange['seconds']:.1f} s "
         f"interchange, conv_study calls "
@@ -4135,7 +4527,8 @@ def main() -> None:
         f"{mesh['seconds']['b']:.1f} s, c {mesh['seconds']['c']:.1f} s, "
         f"phase 27 (bf16) {bf16['seconds']:.1f} s, phase 28 (viz) "
         f"{viz['seconds']:.1f} s, phase 29 (runbook) "
-        f"{runbook['phase_s']:.1f} s")
+        f"{runbook['phase_s']:.1f} s, phase 30 (conv_block) "
+        f"{cb['seconds']:.1f} s")
     say(json.dumps({"kernels": kernels}))
     say(card)
     say(json.dumps({"ok": True, "device": {

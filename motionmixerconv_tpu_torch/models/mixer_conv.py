@@ -22,6 +22,7 @@ from typing import Optional, Tuple, Union
 import torch
 from torch import nn
 
+from ..ops import conv_block
 from ..ops.activations import gelu_exact, get_activation
 from .common import (Conv2d, Linear, Regularization, layer_norm,
                      torch_default_init_)
@@ -36,6 +37,16 @@ def _pad_arg(padding: Pad):
     if padding is None or padding == "same":
         return "same"
     return tuple(padding)
+
+
+def _pads_as_same(padding: Pad, kernel_shape) -> bool:
+    """Whether ``padding`` pads as 'same' does: 'same' itself, or an odd
+    kernel's (k - 1) // 2 on each side of each axis."""
+    pad = _pad_arg(padding)
+    if pad == "same":
+        return True
+    return all(k % 2 for k in kernel_shape) and pad == tuple(
+        (k - 1) // 2 for k in kernel_shape)
 
 
 class MultiChanSELayer(nn.Module):
@@ -63,7 +74,14 @@ class MultiChanSELayer(nn.Module):
 
 
 class ConvBlock(nn.Module):
-    """Conv2d -> activation -> regularization on (B, C, T, E)."""
+    """Conv2d -> activation -> regularization on (B, C, T, E).
+
+    A block of one channel at stride 1 with 'same' padding (or the explicit
+    padding an odd kernel's 'same' gives) and no compute dtype
+    (``one_kernel``) runs its conv and activation on float32 CUDA
+    tensors as one kernel each way (``ops/conv_block.py``); every other
+    block, and every CPU tensor, runs the modules. The regularization stays
+    its own module either way."""
 
     def __init__(self, conv_nChan: int, kernel_shape=(1, 3), stride=(1, 1),
                  padding: Pad = "same", activation: str = "gelu",
@@ -72,10 +90,18 @@ class ConvBlock(nn.Module):
         self.conv = Conv2d(conv_nChan, conv_nChan, tuple(kernel_shape),
                            stride=tuple(stride), padding=_pad_arg(padding),
                            compute_dtype=dtype)
+        self.activation = activation
         self.act = get_activation(activation)
         self.reg = Regularization(regularization, conv_nChan, dtype=dtype)
+        self.one_kernel = (conv_nChan == 1 and tuple(stride) == (1, 1)
+                           and _pads_as_same(padding, tuple(kernel_shape))
+                           and dtype is None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w = self.conv.weight
+        if self.one_kernel and conv_block.takes(x, w):
+            return self.reg(conv_block.conv_block(x, w, self.conv.bias,
+                                                  self.activation))
         return self.reg(self.act(self.conv(x)))
 
 

@@ -143,6 +143,12 @@ def _declare(lib) -> None:
     lib.mmc_harmonic_dense_fwd.restype = i
     lib.mmc_harmonic_dense_bwd.argtypes = [p] * 8 + [i] * 11 + [p]
     lib.mmc_harmonic_dense_bwd.restype = i
+    lib.mmc_conv_block_device_launches.argtypes = [p]
+    lib.mmc_conv_block_device_launches.restype = i
+    lib.mmc_conv_block_fwd.argtypes = [p] * 5 + [i] * 6 + [p]
+    lib.mmc_conv_block_fwd.restype = i
+    lib.mmc_conv_block_bwd.argtypes = [p] * 9 + [i] * 6 + [p]
+    lib.mmc_conv_block_bwd.restype = i
 
 
 def load_library():

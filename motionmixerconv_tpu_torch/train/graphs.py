@@ -33,6 +33,7 @@ once. No span is opened inside the captured body.
 from __future__ import annotations
 
 import contextlib
+import gc
 import threading
 import time
 from typing import Callable, Optional, Sequence
@@ -148,8 +149,19 @@ class StepGraph:
     def _capture_graph(self, batch) -> None:
         self.static = [b.clone() for b in batch]
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=self._side,
-                              capture_error_mode="thread_local"):
-            self.body(self.sums, *self.static)
+        # An unreachable CUDAGraph (an earlier trainer's, in a reference
+        # cycle) that the cyclic collector frees inside the body destroys
+        # its graph there, which invalidates the capture (PyTorch no longer
+        # collects when a capture begins). So the collector stays off until
+        # the capture ends; what it owes is collected after.
+        was_enabled = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, stream=self._side,
+                                  capture_error_mode="thread_local"):
+                self.body(self.sums, *self.static)
+        finally:
+            if was_enabled:
+                gc.enable()
         self.graph = graph
         graph.replay()  # the capture ran nothing: this is the step

@@ -197,3 +197,149 @@ def test_a_captured_epoch_records_its_capture_and_launches(card):
     names = {e.name for e in prof.events()}
     assert {"mmc.train.epoch", "mmc.train.step", "mmc.train.launch",
             "mmc.read"} <= names
+
+
+CONV_BLOCK_CASES = [  # (N, T, E, taps, activation, backward too)
+    (50, 10, 50, (1, 3), "mish", True),    # the flagship's training step
+    (50, 10, 50, (3, 1), "mish", True),
+    (256, 10, 50, (1, 3), "mish", False),  # its evaluation batch
+    (256, 10, 50, (3, 1), "mish", False),
+    (50, 10, 50, (5, 5), "mish", True),    # the AIS autoregressive model
+    (50, 10, 50, (2, 2), "gelu", True),    # an even kernel
+]
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("n,t,e,k,act,backward", CONV_BLOCK_CASES)
+def test_conv_block_kernels_against_their_plain_versions(card, n, t, e, k,
+                                                         act, backward):
+    """The single-channel ConvBlock's kernels against their plain versions
+    in float64: within 1e-5 of each output's largest magnitude (float32
+    taps, and the batch's weight and bias sums in another order than
+    cuDNN's); three launches bit for bit; no plain version called."""
+    from motionmixerconv_tpu_torch.ops import conv_block
+
+    gen = torch.Generator().manual_seed(7)
+    x, g = (torch.randn(n, 1, t, e, generator=gen).to(card) for _ in range(2))
+    w = (torch.randn(1, 1, *k, generator=gen) / (k[0] * k[1]) ** 0.5).to(card)
+    b = torch.full((1,), 0.1, device=card)
+    counter = torch.empty(1, device=card, dtype=torch.int32)
+    plain = conv_block.PLAIN_CALLS.value
+    got = [[conv_block.conv_block_fwd(x, w, b, act, counter)]
+           + (list(conv_block.conv_block_bwd(x, g, w, b, act, counter))
+              if backward else []) for _ in range(3)]
+    assert conv_block.PLAIN_CALLS.value == plain
+    for other in got[1:]:
+        assert all(torch.equal(u, v) for u, v in zip(got[0], other))
+    d = [v.double() for v in (x, g, w, b)]
+    want = [conv_block.conv_block_plain(d[0], d[2], d[3], act)]
+    if backward:
+        want += list(conv_block.conv_block_bwd_plain(*d, act))
+    for u, v in zip(got[0], want):
+        assert u.shape == v.shape and u.dtype == torch.float32
+        assert float((u.double() - v).abs().max()) <= 1e-5 * float(
+            v.abs().max())
+
+
+@pytest.mark.card
+def test_conv_block_counts_launches_and_replays_in_a_graph(card):
+    """A one-channel ConvBlock on the card runs the two kernels and nothing
+    else (no cuDNN convolution, no elementwise chain); their device
+    counters see every eager call and every replay of a captured forward
+    and backward, whose result is the eager one bit for bit."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from motionmixerconv_tpu_torch.models import ConvBlock
+    from motionmixerconv_tpu_torch.ops import conv_block
+
+    block = ConvBlock(1, (1, 3), activation="mish", regularization=0.1).to(card)
+    gen = torch.Generator().manual_seed(8)
+    x, g = (torch.randn(50, 1, 10, 50, generator=gen).to(card)
+            for _ in range(2))
+    xs = x.clone().requires_grad_()
+    params = [block.conv.weight, block.conv.bias]
+    block.eval()  # no dropout: the replays repeat the eager step
+
+    def step():
+        a = block(xs)
+        return (a, *torch.autograd.grad(a, [xs, *params], g))
+
+    # every call on the capture's stream: the leaves' gradient nodes keep
+    # the stream of their first backward, which a capture may not wait on
+    side = torch.cuda.Stream(card)
+    side.wait_stream(torch.cuda.current_stream(card))
+    with torch.cuda.stream(side):
+        step()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            eager = step()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA
+                 and not getattr(e, "is_user_annotation", False)]
+        assert len(names) == 2 and all("conv_block_" in n for n in names), \
+            names
+        start = conv_block.device_launches()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            captured = step()
+        now = conv_block.device_launches()
+        assert (now[0] - start[0], now[1] - start[1]) == (0, 0)
+        for _ in range(5):
+            graph.replay()
+        now = conv_block.device_launches()
+        assert (now[0] - start[0], now[1] - start[1]) == (5, 5)
+    assert all(torch.equal(u, v) for u, v in zip(captured, eager))
+
+
+@pytest.mark.card
+def test_conv_block_refuses_a_plane_too_large_for_shared_memory(card):
+    """A one-channel float32 ConvBlock on the card whose planes exceed a
+    block's shared memory raises NotImplementedError, forward or backward,
+    and never falls back to its plain version or to the modules."""
+    from motionmixerconv_tpu_torch.models import ConvBlock
+    from motionmixerconv_tpu_torch.ops import conv_block
+
+    block = ConvBlock(1, (1, 3), activation="mish").to(card)
+    plain = conv_block.PLAIN_CALLS.value
+    with pytest.raises(NotImplementedError, match="shared memory"):
+        block(torch.zeros(2, 1, 300, 300, device=card))
+    # a plane whose forward fits and whose backward (x and dz) does not
+    x = torch.zeros(2, 1, 200, 200, device=card, requires_grad=True)
+    a = block(x)
+    with pytest.raises(NotImplementedError, match="shared memory"):
+        a.sum().backward()
+    assert conv_block.PLAIN_CALLS.value == plain
+
+
+@pytest.mark.card
+def test_step_graph_captures_with_the_collector_off(card):
+    """A step graph's capture runs with Python's cyclic collector off, so
+    no unreachable earlier graph is destroyed inside it (which invalidates
+    the capture), and turns it on again; an earlier graph left in a
+    reference cycle does not disturb the next capture."""
+    import gc
+
+    from motionmixerconv_tpu_torch.train.graphs import WARMUP_CALLS, StepGraph
+
+    seen = []
+    x = torch.ones(8, device=card)
+
+    def body(sums, b):
+        seen.append(gc.isenabled())
+        sums.add_((x * b).sum())
+
+    n = WARMUP_CALLS + 2
+    old = StepGraph(body, card, (), capture=True)
+    old.run(torch.ones(n, device=card))
+    cycle = [old]
+    cycle.append(cycle)
+    del old, cycle
+    seen.clear()
+    sums = StepGraph(body, card, (), capture=True).run(
+        torch.ones(n, device=card))
+    assert seen == [True] * WARMUP_CALLS + [False]  # warm-ups, the capture
+    assert gc.isenabled()
+    assert float(sums) == 8 * n

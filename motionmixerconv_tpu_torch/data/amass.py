@@ -8,7 +8,8 @@ runs ``ang2joint`` file by file; here every resampled frame of the split
 goes through one batched FK call.
 
 Stored frames are the flat (52 * 3,) joint positions; the trainer selects
-``AMASS_DIM_USED`` (joints 4..21, 54 dims).
+``AMASS_DIM_USED`` (joints 4..21, 54 dims). The walk and the FK are the
+``data.read`` and ``data.fk`` spans of ``profiling``.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import numpy as np
 import torch
 
 from ..geometry import ang2joint, load_smpl_skeleton
+from ..profiling import span
 from .constants import AMASS_SPLITS, AMASS_TARGET_FPS
 from .windows import WindowedCorpus
 
@@ -43,31 +45,32 @@ class AMASSDataset(WindowedCorpus):
 
         sequences = []  # resampled (n, 52, 3) poses per file
         self.keys = []
-        for ds in AMASS_SPLITS[split]:
-            ds_path = os.path.join(data_dir, ds)
-            if not os.path.isdir(ds_path):
-                continue
-            for sub in sorted(os.listdir(ds_path)):
-                sub_path = os.path.join(ds_path, sub)
-                if not os.path.isdir(sub_path):
+        with span("data.read"):
+            for ds in AMASS_SPLITS[split]:
+                ds_path = os.path.join(data_dir, ds)
+                if not os.path.isdir(ds_path):
                     continue
-                for act in sorted(os.listdir(sub_path)):
-                    if not act.endswith(".npz"):
+                for sub in sorted(os.listdir(ds_path)):
+                    sub_path = os.path.join(ds_path, sub)
+                    if not os.path.isdir(sub_path):
                         continue
-                    with np.load(os.path.join(sub_path, act)) as pose_all:
-                        if "poses" not in pose_all.files:
+                    for act in sorted(os.listdir(sub_path)):
+                        if not act.endswith(".npz"):
                             continue
-                        poses = pose_all["poses"]
-                        frame_rate = float(pose_all["mocap_framerate"])
-                    sample_rate = int(frame_rate // AMASS_TARGET_FPS)
-                    poses = poses[::sample_rate].astype(np.float32)
-                    fn = poses.shape[0]
-                    if fn < seq_len:
-                        continue
-                    poses = poses.reshape(fn, -1, 3)
-                    poses[:, 0] = 0.0  # remove the global rotation
-                    sequences.append(poses)
-                    self.keys.append((ds, sub, act))
+                        with np.load(os.path.join(sub_path, act)) as pose_all:
+                            if "poses" not in pose_all.files:
+                                continue
+                            poses = pose_all["poses"]
+                            frame_rate = float(pose_all["mocap_framerate"])
+                        sample_rate = int(frame_rate // AMASS_TARGET_FPS)
+                        poses = poses[::sample_rate].astype(np.float32)
+                        fn = poses.shape[0]
+                        if fn < seq_len:
+                            continue
+                        poses = poses.reshape(fn, -1, 3)
+                        poses[:, 0] = 0.0  # remove the global rotation
+                        sequences.append(poses)
+                        self.keys.append((ds, sub, act))
         if not sequences:
             raise FileNotFoundError(f"no AMASS npz files under {data_dir}")
 
@@ -80,7 +83,8 @@ class AMASSDataset(WindowedCorpus):
         all_poses = torch.from_numpy(np.concatenate(sequences))  # (N, 52, 3)
         p3d0, parents = load_smpl_skeleton()
         rest = torch.from_numpy(p3d0).expand(all_poses.shape[0], -1, -1)
-        with torch.no_grad():  # one batched FK over the whole split
+        # one batched FK over the whole split
+        with span("data.fk"), torch.no_grad():
             xyz = ang2joint(rest, all_poses, parents)
         frames = xyz.reshape(all_poses.shape[0], -1).numpy()  # (N, 156)
         super().__init__(frames=frames, window_starts=window_starts,

@@ -33,7 +33,14 @@ reading of them. The spans, all outside any captured CUDA graph's body
   ``train.launch`` / ``eval.launch`` (a graph's replay), ``train.eager`` /
   ``eval.eager`` (an eager body: the warm-up calls, every call on the CPU)
   or ``capture`` (a graph built, and its first replay);
-- ``read``: each host read that waits for the device.
+- ``read``: each host read that waits for the device;
+- ``data.read`` / ``data.fk``: ``AMASSDataset``'s walk over the npz
+  archives / its batched SMPL forward kinematics.
+
+Graphs. ``count_graph(kind, nodes)`` records, at capture, the nodes of a
+step graph (``train/graphs.py``) by the step's kind ("train" or "eval"):
+the graphs counted, their nodes together and the nodes of each CUDA node
+type; ``graph_nodes()`` reads them. A replay records nothing.
 """
 
 from __future__ import annotations
@@ -152,7 +159,10 @@ def profile_dir_from_env() -> str | None:
 
 # per bucket, per span name: [count, total ns, self ns]
 _TOTALS: dict = {"untraced": {}, "traced": {}}
-_LOCK = threading.Lock()  # guards _TOTALS, as ops/_build.Counter's lock
+# per step kind: {"graphs": graphs counted, "nodes": their nodes, and the
+# nodes of each CUDA node type ("kernel", "memcpy", "memset", ...)}
+_GRAPHS: dict = {}
+_LOCK = threading.Lock()  # guards both tables, as ops/_build.Counter's lock
 _OPEN = threading.local()  # .stack: this thread's open spans, innermost last
 
 
@@ -242,11 +252,29 @@ def snapshot() -> dict:
 
 
 def reset() -> None:
-    """Clear every total (spans open now still add theirs when they
-    close)."""
+    """Clear every total and graph count (spans open now still add
+    theirs when they close)."""
     with _LOCK:
         for names in _TOTALS.values():
             names.clear()
+        _GRAPHS.clear()
+
+
+def count_graph(kind: str, nodes: dict) -> None:
+    """Add one captured graph of ``kind`` and its ``nodes`` ({"nodes":
+    all, type: count}) to the graph counts."""
+    with _LOCK:
+        t = _GRAPHS.setdefault(kind, {"graphs": 0})
+        t["graphs"] += 1
+        for name, n in nodes.items():
+            t[name] = t.get(name, 0) + n
+
+
+def graph_nodes() -> dict:
+    """A copy of the graph counts: step kind -> {"graphs", "nodes",
+    and a count per node type}."""
+    with _LOCK:
+        return {kind: dict(t) for kind, t in _GRAPHS.items()}
 
 
 def epoch_numbers(now: dict, before: dict | None = None) -> dict:

@@ -27,15 +27,21 @@ anyway; the card still runs both trials' kernels.
 Every call is a ``<kind>.step`` span of ``profiling``, holding a
 ``<kind>.launch`` (the replay), ``<kind>.eager`` or ``capture`` span; with
 no profiler recording, ``run`` times its calls itself and adds the spans
-once. No span is opened inside the captured body.
+once. No span is opened inside the captured body. Each capture records its
+graph's nodes, by CUDA node type, in ``profiling.count_graph``: read from
+the captured ``cudaGraph_t`` (kept until it is counted, then instantiated)
+through the driver's ``cuGraphGetNodes``; a replay records nothing.
 """
 
 from __future__ import annotations
 
 import contextlib
+import ctypes
+import functools
 import gc
 import threading
 import time
+from collections import Counter
 from typing import Callable, Optional, Sequence
 
 import torch
@@ -48,6 +54,47 @@ from .. import profiling
 # batches of the sequence
 WARMUP_CALLS = 3
 GRAPH_LOCK = threading.Lock()  # held by every call of a CUDA StepGraph
+# the driver API's CUgraphNodeType values a step's capture holds; any other
+# type is counted as "type_<value>"
+NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset"}
+
+
+@functools.lru_cache(maxsize=None)
+def _driver() -> ctypes.CDLL:
+    """The CUDA driver library, with the two graph queries declared."""
+    lib = ctypes.CDLL("libcuda.so.1")
+    lib.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                    ctypes.POINTER(ctypes.c_size_t)]
+    lib.cuGraphGetNodes.restype = ctypes.c_int
+    lib.cuGraphNodeGetType.argtypes = [ctypes.c_void_p,
+                                       ctypes.POINTER(ctypes.c_int)]
+    lib.cuGraphNodeGetType.restype = ctypes.c_int
+    return lib
+
+
+def _checked(name: str, rc: int) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name} failed with CUresult {rc}")
+
+
+def graph_node_counts(graph: torch.cuda.CUDAGraph) -> dict:
+    """{"nodes": all, and a count per node type} of a graph captured with
+    ``keep_graph=True``, before or after its instantiation."""
+    lib = _driver()
+    handle = ctypes.c_void_p(int(graph.raw_cuda_graph()))
+    n = ctypes.c_size_t(0)
+    _checked("cuGraphGetNodes", lib.cuGraphGetNodes(handle, None,
+                                                    ctypes.byref(n)))
+    nodes = (ctypes.c_void_p * n.value)()
+    _checked("cuGraphGetNodes", lib.cuGraphGetNodes(handle, nodes,
+                                                    ctypes.byref(n)))
+    kinds: Counter = Counter()
+    kind = ctypes.c_int()
+    for node in nodes[: n.value]:
+        _checked("cuGraphNodeGetType",
+                 lib.cuGraphNodeGetType(node, ctypes.byref(kind)))
+        kinds[NODE_TYPES.get(kind.value, f"type_{kind.value}")] += 1
+    return {"nodes": n.value, **kinds}
 
 
 class StepGraph:
@@ -80,6 +127,7 @@ class StepGraph:
         self.eager_calls = 0
         self._side = torch.cuda.Stream(device) if capture else None
         self._lock = GRAPH_LOCK if capture else contextlib.nullcontext()
+        self.kind = kind
         self._step, self._launch, self._eager = (
             f"{kind}.step", f"{kind}.launch", f"{kind}.eager")
 
@@ -148,7 +196,8 @@ class StepGraph:
 
     def _capture_graph(self, batch) -> None:
         self.static = [b.clone() for b in batch]
-        graph = torch.cuda.CUDAGraph()
+        # kept after the capture, so that its nodes can be counted
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
         # An unreachable CUDAGraph (an earlier trainer's, in a reference
         # cycle) that the cyclic collector frees inside the body destroys
         # its graph there, which invalidates the capture (PyTorch no longer
@@ -163,5 +212,7 @@ class StepGraph:
         finally:
             if was_enabled:
                 gc.enable()
+        profiling.count_graph(self.kind, graph_node_counts(graph))
+        graph.instantiate()
         self.graph = graph
         graph.replay()  # the capture ran nothing: this is the step

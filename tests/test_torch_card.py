@@ -343,3 +343,95 @@ def test_step_graph_captures_with_the_collector_off(card):
     assert seen == [True] * WARMUP_CALLS + [False]  # warm-ups, the capture
     assert gc.isenabled()
     assert float(sums) == 8 * n
+
+
+@pytest.mark.card
+def test_a_flagship_step_graph_records_its_nodes(card):
+    """The nodes a flagship training step's capture records, against the
+    device operations the profiler sees in one replay of its graph: every
+    node is one of them, a kernel node a kernel, the memset node a
+    ``Memset``, the memcpy node a copy kernel (``memcpy32_post``); the two
+    operations left over are the int64 fills of the dropout generator's
+    seed and offset that ``replay()`` launches before the graph (its
+    generator prologue), which are not nodes."""
+    from types import SimpleNamespace
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from motionmixerconv_tpu_torch import profiling
+    from motionmixerconv_tpu_torch.cli._runner import build_conv_mixer
+    from motionmixerconv_tpu_torch.data import WindowedCorpus
+    from motionmixerconv_tpu_torch.data.constants import H36M_DIM_USED_XYZ
+    from motionmixerconv_tpu_torch.train import Trainer
+    from motionmixerconv_tpu_torch.train.graphs import WARMUP_CALLS
+
+    args = SimpleNamespace(num_blocks=4, hidden_dim=50, activation="mish",
+                           regularization=0.1, r_se=8,
+                           encoder_n_harmonic_functions=64,
+                           encoder_omega0=0.1, fused_encoder=True)
+    model = build_conv_mixer(args, 66, 66, 10, 25,
+                             generator=torch.Generator().manual_seed(0))
+    model = model.to(card)
+    trainer = Trainer(model, make_optimizer(model.parameters(), lr=1e-3),
+                      loss_type="mpjpe", dim_used=H36M_DIM_USED_XYZ,
+                      input_n=10, output_n=25, input_scale=1e-3)
+    frames = np.random.RandomState(5).randn(2000, 96).astype(np.float32) * 300
+    bs, steps = 50, WARMUP_CALLS + 2
+    corpus = WindowedCorpus(frames, np.arange(steps * bs) * 3, 35)
+    on_card = torch.from_numpy(frames).to(card)
+    profiling.reset()
+    trainer.train_epoch(corpus, on_card, bs, seed=0)
+    nodes = profiling.graph_nodes()["train"]
+    runner, = (r for k, r in trainer._graphs.items() if k[0] == "train")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        runner.graph.replay()
+        torch.cuda.synchronize()
+    ops = [e.name() for e in prof.profiler.kineto_results.events()
+           if str(e.device_type()).endswith("CUDA")
+           and not e.is_user_annotation()]
+    memsets = sum(n.startswith("Memset") for n in ops)
+    memcpys = sum("memcpy" in n.lower() for n in ops)
+    fills = sum("FillFunctor<long>" in n for n in ops)
+    print(f"step graph nodes {nodes}; one replay: {len(ops)} device "
+          f"operations, {memsets} memsets, {memcpys} copies, {fills} int64 "
+          "fills")
+    assert nodes["graphs"] == 1
+    assert nodes.get("memset", 0) == memsets
+    assert nodes.get("memcpy", 0) == memcpys
+    assert nodes["nodes"] == nodes["kernel"] + memsets + memcpys
+    prologue = len(ops) - nodes["nodes"]
+    assert prologue == 2 and fills >= prologue
+    profiling.reset()
+    trainer.train_epoch(corpus, on_card, bs, seed=1)  # replays alone
+    assert profiling.graph_nodes() == {}
+
+
+@pytest.mark.card
+def test_tf32_in_the_amass_cells_program_is_caught(card, monkeypatch):
+    """The AMASS cell's comparison on the card, at its published widths on
+    a corpus of a few recordings: the sound program reads correct; with
+    TF32 allowed in the program's matmuls (the reference keeps it off) it
+    does not."""
+    import sys
+    from pathlib import Path
+
+    root = str(Path(__file__).resolve().parents[1])
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    from bench_h100 import harness
+
+    small = {"corpus": {"source": "synthetic_amass", "datasets": [1, 1, 1],
+                        "subjects": [1, 1, 1], "recordings": [4, 1, 2],
+                        "framerate": 50}}
+
+    def run():
+        return harness.run_cell("amass_mlpmixer.train", 2 ** 31 + 77, 0.01,
+                                False, card, 0.0,
+                                overrides={"config": small})["result"]
+
+    assert run()["correct"]
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    res = run()
+    assert not res["correct"], res["checks"]

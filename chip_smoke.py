@@ -146,6 +146,18 @@ CLI's 'same' padding) on graphs against its eager steps, its kernels a
 step by both routes and the backward kernel's launches a step. Phase 30
 runs in a process of its own, which is also how to run it alone:
 ``python3 -c 'import chip_smoke; chip_smoke.conv_block_alone()'``.
+[31] the Adam kernel (``ops/adam.py``) at the parameter lists of the
+benchmark's three cells (flagship, autoregressive, AMASS: 52, 68, 78
+tensors): over 100 steps across a milestone against
+``torch.optim.Adam(capturable=True)`` on one sequence of gradients, within
+``ADAM_ULPS``, a second run bit-identical, one device launch a step; its
+time per call and on the device beside its bound, its plain version on
+CUDA tensors and torch's capturable multi-tensor and fused Adam (the
+yardsticks, which the port never calls); the flagship's training step
+through it on graphs against its eager steps, and both routes' graph
+nodes, kernels, device time and samples/s a step. Phase 31 runs in a
+process of its own too: ``python3 -c 'import chip_smoke;
+chip_smoke.adam_alone()'``.
 Then the whole run's seconds, one JSON line with every kernel's
 numbers, the card's name and power limit, and the result line. Any failure exits non-zero; with
 no CUDA device, or with the port's package missing beside this script, it
@@ -3259,10 +3271,10 @@ def cb_work(n, t, e, k, backward: bool):
             plane * (6 * taps + 3))
 
 
-def device_total_us(torch, fn, reps: int = 20):
-    """Device time per call of ``fn`` (microseconds): every device kernel
-    and copy of a torch.profiler trace of ``reps`` calls, summed; None
-    where the trace shows no device time."""
+def device_profile(torch, fn, reps: int = 20):
+    """Device time (us) and device operations per call of ``fn``, and the
+    operations that take most of it, from a torch.profiler trace of
+    ``reps`` calls; None where the trace shows no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -3274,11 +3286,17 @@ def device_total_us(torch, fn, reps: int = 20):
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        total = sum(e.time_range.elapsed_us() for e in prof.events()
-                    if e.device_type == DeviceType.CUDA
-                    and not getattr(e, "is_user_annotation", False))
+        ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+        by_name = {}
+        for e in ops:
+            by_name[e.name] = (by_name.get(e.name, 0.0)
+                               + e.time_range.elapsed_us())
+        total = sum(by_name.values())
         if total > 0:
-            return total / reps
+            return {"us": total / reps, "ops": len(ops) / reps,
+                    "top": [(n[:60], us / reps) for n, us in sorted(
+                        by_name.items(), key=lambda kv: -kv[1])[:3]]}
     return None
 
 
@@ -3358,10 +3376,12 @@ def check_conv_block(torch, conv_block, dev, case) -> dict:
             if None not in (times["fwd"]["device_us"],
                             times["bwd"]["device_us"]) else None,
             "library_ms": cuda_ms(torch, library),
-            "library_device_us": device_total_us(torch, library)}
+            "library_device_us": (device_profile(torch, library)
+                                  or {}).get("us")}
     else:
         times["fwd"]["library_ms"] = times["fwd"]["plain_ms"]
-        times["fwd"]["library_device_us"] = device_total_us(torch, library)
+        times["fwd"]["library_device_us"] = (
+            device_profile(torch, library) or {}).get("us")
     return {"err": errs, "times": times}
 
 
@@ -3577,6 +3597,258 @@ def conv_block_child() -> dict:
             say(line)
     if res.returncode != 0 or found is None:
         fail(f"phase 30's process exited {res.returncode}: "
+             f"{res.stderr.strip()[-2000:]}")
+    return found
+
+
+# phase 31: the Adam kernel at the parameter lists of the benchmark's cells
+ADAM_STEPS = 100  # steps held to torch's capturable Adam, across a milestone
+ADAM_SCHEDULE = dict(lr=1e-3, milestones=[2], steps_per_epoch=25)
+ADAM_ULPS = 0     # tests/test_torch_card.py's bound, in ulps of each
+                  # tensor's largest magnitude
+ADAM_BYTES = 28   # an element's bytes: p, m, v read and written, g read
+
+
+def adam_models(torch, dev, seed):
+    """The benchmark cells' models (flagship, autoregressive, AMASS), built
+    from ``seed`` on ``dev``."""
+    from motionmixerconv_tpu_torch.models import ConvMixer, MlpMixer
+
+    def gen():
+        return torch.Generator().manual_seed(seed)
+
+    return {
+        "flagship": ConvMixer(**FLAGSHIP, encoder_fused=True,
+                              generator=gen()).to(dev),
+        "autoreg": ConvMixer(**AUTOREG, generator=gen()).to(dev),
+        "amass": MlpMixer(**AMASS_MLP, generator=gen()).to(dev)}
+
+
+def adam_ulps(torch, a, b) -> float:
+    """The largest difference of ``a`` from ``b`` in ulps of ``b``'s
+    largest magnitude."""
+    a, b = a.detach(), b.detach()
+    top = b.abs().max()
+    ulp = torch.nextafter(top, torch.full_like(top, float("inf"))) - top
+    return float((a - b).abs().max() / ulp)
+
+
+def adam_check(torch, adam, make_optimizer, dev, model) -> dict:
+    """The kernel against torch's capturable Adam over ADAM_STEPS steps on
+    one sequence of gradients (the last tensor never has one), twice for
+    bit-identity; the worst ulps of parameters and moments."""
+    def params():
+        return [torch.nn.Parameter(p.detach().clone())
+                for p in model.parameters()]
+
+    runs = [(make_optimizer(ps, **ADAM_SCHEDULE), ps)
+            for ps in (params(), params(), params())]
+    ref = runs[2][0]  # torch's capturable multi-tensor route
+    ref.adam.param_groups[0]["foreach"] = True
+    ref._kernel_update = ref.adam.step
+    gen = torch.Generator(dev).manual_seed(SEED + 41)
+    before = adam.device_launches()
+    for i in range(ADAM_STEPS):
+        grads = [torch.randn(p.shape, device=dev, generator=gen) * (1 + i % 3)
+                 for p in runs[0][1][:-1]]
+        for opt, ps in runs:
+            for p, g in zip(ps, grads):
+                p.grad = g.clone()
+            ps[-1].grad = None
+            opt.step()
+    launches = adam.device_launches() - before
+    (opt, ps), (opt2, ps2), (ref, ref_ps) = runs
+    ulps = {"param": 0.0, "exp_avg": 0.0, "exp_avg_sq": 0.0}
+    same = dict.fromkeys(ulps, 0)
+    bits, n_el = True, 0
+    for p, p2, q in zip(ps[:-1], ps2[:-1], ref_ps[:-1]):
+        st, st2, rt = opt.adam.state[p], opt2.adam.state[p2], ref.adam.state[q]
+        if float(st["step"]) != ADAM_STEPS or float(rt["step"]) != ADAM_STEPS:
+            fail(f"adam: step counts {float(st['step'])}, torch's "
+                 f"{float(rt['step'])}")
+        n_el += p.numel()
+        for key, a, a2, b in (("param", p, p2, q),
+                              ("exp_avg", st["exp_avg"], st2["exp_avg"],
+                               rt["exp_avg"]),
+                              ("exp_avg_sq", st["exp_avg_sq"],
+                               st2["exp_avg_sq"], rt["exp_avg_sq"])):
+            ulps[key] = max(ulps[key], adam_ulps(torch, a, b))
+            same[key] += int((a == b).sum())
+            bits = bits and torch.equal(a, a2)
+    if ps[-1] in opt.adam.state:
+        fail("adam: a parameter without a gradient got a state")
+    if max(ulps.values()) > ADAM_ULPS or not bits or \
+            launches != 2 * ADAM_STEPS:
+        fail(f"adam: ulps from torch's capturable Adam {ulps} (bound "
+             f"{ADAM_ULPS}), repeat bit-identical {bits}, device launches "
+             f"{launches} in {2 * ADAM_STEPS} steps")
+    return {"tensors": len(ps), "numel": sum(p.numel() for p in ps),
+            "ulps": ulps, "same_share": {k: v / n_el for k, v in same.items()},
+            "bit_identical": bits,
+            "launches_a_step": launches / (2 * ADAM_STEPS)}
+
+
+def adam_times(torch, adam, make_optimizer, dev, model) -> dict:
+    """One step's update at the model's parameter list: the kernel, torch's
+    capturable multi-tensor Adam (the route before it) and its fused Adam
+    (the yardsticks; the port never calls them) and the plain version on
+    CUDA tensors, per call from Python (CUDA events) and on the device
+    (the profiler's operations a call and their time), beside the bound."""
+    gen = torch.Generator(dev).manual_seed(SEED + 42)
+    ps = [torch.nn.Parameter(p.detach().clone()) for p in model.parameters()]
+    for p in ps:
+        p.grad = torch.randn(p.shape, device=dev, generator=gen) * 1e-3
+    opt = make_optimizer(ps, lr=1e-3)
+    ref = make_optimizer(ps, lr=1e-3)
+    ref.adam.param_groups[0]["foreach"] = True
+    ref._kernel_update = ref.adam.step
+    fused = torch.optim.Adam(ps, lr=torch.tensor(1e-3, device=dev),
+                             weight_decay=1e-5, capturable=True, fused=True)
+    opt.update()  # the states exist before the timing
+    st = [opt.adam.state[p] for p in ps]
+    lists = (ps, [p.grad for p in ps], [s["exp_avg"] for s in st],
+             [s["exp_avg_sq"] for s in st], [s["step"] for s in st])
+    routes = {"kernel": opt.update, "torch_foreach": ref.update,
+              "torch_fused": fused.step,
+              "plain": lambda: adam.adam_update_plain(
+                  *lists, opt._lr_t, 0.9, 0.999, 1e-8, 1e-5)}
+    numel = sum(p.numel() for p in ps)
+    out = {"bound_us": ADAM_BYTES * numel / 3.35e12 * 1e6}
+    for name, fn in routes.items():
+        out[name] = {"ms": cuda_ms(torch, fn),
+                     "device": device_profile(torch, fn)}
+    return out
+
+
+def adam_path(torch, np, dev, card) -> dict:
+    """Phase 31: the Adam kernel (see the docstring)."""
+    from motionmixerconv_tpu_torch import profiling
+    from motionmixerconv_tpu_torch.data.constants import H36M_DIM_USED_XYZ
+    from motionmixerconv_tpu_torch.models import ConvMixer
+    from motionmixerconv_tpu_torch.ops import adam
+    from motionmixerconv_tpu_torch.train import Trainer, make_optimizer
+
+    t_phase = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    models = adam_models(torch, dev, SEED + 40)
+    checks = {c: adam_check(torch, adam, make_optimizer, dev, m)
+              for c, m in models.items()}
+    times = {c: adam_times(torch, adam, make_optimizer, dev, m)
+             for c, m in models.items()}
+
+    # the flagship's training step (the CLI's 'same' padding) through the
+    # kernel, on graphs against its eager steps; then both routes' nodes,
+    # kernels, device time and samples/s a step
+    def make_trainer(route="kernel", regularization=0.0):
+        # dropout off where graph and eager are compared, as phase 30 does:
+        # LayerNorm biases whose gradient is rounding noise move by the
+        # rate whatever it is, so the two paths' noise would part them
+        model = ConvMixer(**dict(FLAGSHIP, conv1_padding=None,
+                                 regularization=regularization),
+                          encoder_fused=True,
+                          generator=torch.Generator().manual_seed(SEED + 43))
+        opt = make_optimizer(model.to(dev).parameters(), lr=1e-3,
+                             **GRAPH_SCHEDULE)
+        if route == "torch":
+            opt._kernel_update = opt.adam.step
+        return Trainer(model, opt, loss_type="mpjpe",
+                       dim_used=H36M_DIM_USED_XYZ, input_n=10, output_n=25,
+                       input_scale=1e-3)
+
+    frames, starts, w = random_batches(torch, dev, SEED + 43, 5000, 96, 300.0,
+                                       35, 3 * GRAPH_STEPS, TRAIN_BATCH)
+    ev_starts = np.random.default_rng(SEED + 43).integers(0, 5000 - 35, 900)
+    vs_eager = graph_vs_eager(
+        torch, make_trainer, frames, starts, w, [None],
+        [("val", 1, frames, ev_starts, np.zeros(900, np.int64), TRAIN_BATCH)])
+    check_graph("flagship through the Adam kernel", vs_eager)
+    steps = {}
+    for route in ("kernel", "torch"):
+        tr = make_trainer(route, FLAGSHIP["regularization"])
+        profiling.reset()
+        before = adam.device_launches()
+        steps[route] = profile_train(
+            torch, lambda lo, hi: tr._train_sums(
+                frames, starts[lo:hi], w[lo:hi], None, True).cpu(),
+            GRAPH_STEPS, TRAIN_BATCH)
+        steps[route]["nodes"] = profiling.graph_nodes()["train"]["nodes"]
+        steps[route]["adam_per_step"] = (
+            adam.device_launches() - before) / (3 * GRAPH_STEPS)
+    if steps["kernel"]["adam_per_step"] != 1 or \
+            steps["torch"]["adam_per_step"] != 0:
+        fail(f"adam: kernel launches a flagship step "
+             f"{steps['kernel']['adam_per_step']} (torch's route "
+             f"{steps['torch']['adam_per_step']})")
+    seconds = time.perf_counter() - t_phase
+
+    def fmt_route(v):
+        d = v["device"]
+        if not d:
+            return f"{v['ms']:.4f} ms (no device time)"
+        return (f"{v['ms']:.4f} ms (device {d['us']:.2f} us in "
+                f"{d['ops']:.1f} ops, top "
+                + ", ".join(f"{n} {us:.2f}" for n, us in d["top"]) + ")")
+
+    say(f"[31 adam] {card} | the kernel against torch's capturable Adam "
+        f"over {ADAM_STEPS} steps (bound {ADAM_ULPS} ulps), repeats "
+        "bit-identical: " + " ;; ".join(
+            f"{c}: {v['tensors']} tensors, {v['numel']} elements, ulps "
+            f"{v['ulps']}, bit-equal shares "
+            + ", ".join(f"{k} {s:.6f}" for k, s in v["same_share"].items())
+            + f", launches a step {v['launches_a_step']:.1f}"
+            for c, v in checks.items())
+        + " | per call and on the device: " + " ;; ".join(
+            f"{c}: bound {t['bound_us']:.3f} us (bytes); " + "; ".join(
+                f"{r} {fmt_route(t[r])}" for r in
+                ("kernel", "torch_foreach", "torch_fused", "plain"))
+            for c, t in times.items())
+        + f" | flagship step, graph against eager: {fmt_graph(vs_eager)} | "
+        + " | ".join(
+            f"{route}: {st['nodes']} graph nodes, {st['kernels']:.1f} "
+            f"kernels/step, Adam launches a step {st['adam_per_step']:.1f}, "
+            f"step {st['step_ms']:.3f} ms, device busy {st['busy_ms']:.3f} "
+            f"ms/step, idle {st['idle']:.3f}, {st['samples_per_s']:.1f} "
+            f"samples/s, top {st['top'][:3]}"
+            for route, st in steps.items())
+        + f" | phase {seconds:.1f} s")
+    return {"checks": checks, "times": times, "steps": {
+        k: {kk: vv for kk, vv in v.items() if kk != "top"}
+        for k, v in steps.items()}, "seconds": seconds}
+
+
+def adam_alone() -> None:
+    """Phase 31 alone on the card, then the result line."""
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch sees no CUDA device")
+    sys.path.insert(0, str(ROOT))
+    card = card_line()
+    dev = torch.device(DEVICE)
+    torch.cuda.set_device(dev)
+    res = adam_path(torch, np, dev, card)
+    say(json.dumps({"adam": res}))
+    say(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+def adam_child() -> dict:
+    """Phase 31 in a process of its own (``adam_alone``), as phase 30 runs,
+    its lines echoed; its results."""
+    res = subprocess.run(
+        [sys.executable, "-c", "import chip_smoke; chip_smoke.adam_alone()"],
+        cwd=ROOT, capture_output=True, text=True, timeout=1200)
+    found = None
+    for line in res.stdout.splitlines():
+        if line.startswith('{"adam"'):
+            found = json.loads(line)["adam"]
+        elif not line.startswith('{"ok"'):
+            say(line)
+    if res.returncode != 0 or found is None:
+        fail(f"phase 31's process exited {res.returncode}: "
              f"{res.stderr.strip()[-2000:]}")
     return found
 
@@ -4346,6 +4618,9 @@ def main() -> None:
     # [30] the single-channel ConvBlock kernels
     cb = conv_block_child()
 
+    # [31] the Adam kernel
+    adam_res = adam_child()
+
     def runbook_f64(kernel):
         """The runbook's trained models served by ``kernel``, each
         against float64."""
@@ -4514,6 +4789,20 @@ def main() -> None:
                 "bound_by": c["times"][direction]["bound"][1]}
                 for tag, c in cb["cases"].items() if direction in c["times"]},
             "train_step_launches": cb["steps"]["kernel"]["bwd_per_step"]})
+    kernels.append({
+        "name": "adam", "route": "cuda",
+        "source": "motionmixerconv_tpu_torch/csrc/adam.cu", "replaces": None,
+        "max_ulps_from_torch": max(max(c["ulps"].values())
+                                   for c in adam_res["checks"].values()),
+        "by_cell": {c: {
+            "ms": t["kernel"]["ms"],
+            "device_us": (t["kernel"]["device"] or {}).get("us"),
+            "plain_ms": t["plain"]["ms"],
+            "library_ms": t["torch_fused"]["ms"],
+            "torch_foreach_ms": t["torch_foreach"]["ms"],
+            "bound_ms": t["bound_us"] / 1e3, "bound_by": "bytes"}
+            for c, t in adam_res["times"].items()},
+        "train_step_launches": adam_res["steps"]["kernel"]["adam_per_step"]})
     say(f"[run] {time.perf_counter() - t_run:.1f} s, the kernels' build "
         f"included | phases 21-23: {interchange['seconds']:.1f} s "
         f"interchange, conv_study calls "
@@ -4528,7 +4817,7 @@ def main() -> None:
         f"phase 27 (bf16) {bf16['seconds']:.1f} s, phase 28 (viz) "
         f"{viz['seconds']:.1f} s, phase 29 (runbook) "
         f"{runbook['phase_s']:.1f} s, phase 30 (conv_block) "
-        f"{cb['seconds']:.1f} s")
+        f"{cb['seconds']:.1f} s, phase 31 (adam) {adam_res['seconds']:.1f} s")
     say(json.dumps({"kernels": kernels}))
     say(card)
     say(json.dumps({"ok": True, "device": {

@@ -2,7 +2,8 @@
 (``conv_mixer`` and ``conv_mixer_mc``: fused ConvMixer cores; ``harmonic``:
 fused harmonic encoder forward and backward; ``mlp_mixer``: fused MlpMixer
 forward; ``conv_block``: the single-channel ConvBlock forward and
-backward). Kernels are built by ``_build`` at first use."""
+backward; ``adam``: a training step's Adam update). Kernels are built by
+``_build`` at first use."""
 
 from .activations import get_activation, gelu_exact, mish
 

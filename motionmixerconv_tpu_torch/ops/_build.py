@@ -149,6 +149,13 @@ def _declare(lib) -> None:
     lib.mmc_conv_block_fwd.restype = i
     lib.mmc_conv_block_bwd.argtypes = [p] * 9 + [i] * 6 + [p]
     lib.mmc_conv_block_bwd.restype = i
+    lib.mmc_adam_max_tensors.argtypes = []
+    lib.mmc_adam_max_tensors.restype = i
+    lib.mmc_adam_device_launches.argtypes = [p]
+    lib.mmc_adam_device_launches.restype = i
+    d = ctypes.c_double
+    lib.mmc_adam.argtypes = [p] * 6 + [i, p, d, d, d, d, p, p]
+    lib.mmc_adam.restype = i
 
 
 def load_library():

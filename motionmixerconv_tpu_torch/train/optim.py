@@ -3,20 +3,26 @@ optional global-norm clip.
 
 Counterpart of ``motionmixerconv_tpu/train/optim.py``:
 
-- ``torch.optim.Adam(lr, weight_decay=wd)`` folds the decay into the
-  gradient before the moment updates (L2, not AdamW), as
-  ``add_decayed_weights`` -> ``adam`` does in optax;
+- Adam folds the decay into the gradient before the moment updates (L2,
+  not AdamW), as ``add_decayed_weights`` -> ``adam`` does in optax;
 - the reference steps ``MultiStepLR`` once per epoch; here it steps once
   per batch with boundaries at ``milestone * steps_per_epoch``, the JAX
   package's per-step schedule, so the lr changes at the same step;
 - ``clip_grad_norm_`` runs on the raw gradients before the step.
 
-On a CUDA device Adam is ``capturable`` and reads its lr from a device
-tensor, so that a step can be captured in a CUDA graph (``train/graphs.py``)
-and replayed: ``update`` is the step's device work, ``advance`` the
-schedule's host work between steps, which writes the lr tensor only at a
-milestone. The schedule is MultiStepLR's own arithmetic on a Python float
-(``lr * gamma ** count`` at each milestone), on the CPU and the card alike.
+On a CUDA device a step can be captured in a CUDA graph
+(``train/graphs.py``) and replayed: ``update`` is the step's device work,
+``advance`` the schedule's host work between steps, which writes a device
+lr tensor only at a milestone. There ``update`` is one launch of the Adam
+kernel (``ops/adam.py``), which reads that lr tensor and works on the
+state of ``torch.optim.Adam(capturable=True)``, created in its format at
+the first step (a float32 0-dim device ``step``, ``exp_avg`` and
+``exp_avg_sq`` like the parameter): the torch object keeps the parameter
+groups and the state, so ``state_dict``, the checkpoints of
+``train/state.py`` and ``generation`` see torch's Adam. On the CPU
+``update`` is ``torch.optim.Adam.step``. The schedule is MultiStepLR's own
+arithmetic on a Python float (``lr * gamma ** count`` at each milestone),
+on the CPU and the card alike.
 """
 
 from __future__ import annotations
@@ -25,6 +31,14 @@ from collections import Counter
 from typing import Iterable, Optional, Sequence
 
 import torch
+
+from ..ops import adam as adam_kernel
+
+
+def _capturable(device: torch.device) -> bool:
+    """Whether steps on ``device`` take a device lr and the Adam kernel,
+    so that a CUDA graph can capture them."""
+    return device.type == "cuda"
 
 
 class Optimizer:
@@ -43,7 +57,7 @@ class Optimizer:
                  gamma: float = 0.1, steps_per_epoch: int = 1,
                  clip_grad: Optional[float] = None):
         self.params = list(params)
-        self.capturable = self.params[0].device.type == "cuda"
+        self.capturable = _capturable(self.params[0].device)
         self.base_lr = float(lr)
         self.weight_decay = weight_decay
         self._lr = float(lr)
@@ -59,6 +73,10 @@ class Optimizer:
         self.clip_grad = clip_grad
         self.steps = 0
         self.generation = 0
+        # the Adam kernel's count of its finished blocks, 0 between launches
+        self._counter = (torch.zeros(1, dtype=torch.int32,
+                                     device=self.params[0].device)
+                         if self.capturable else None)
         self._schedule()  # MultiStepLR's own first step, at step 0
 
     @property
@@ -80,10 +98,44 @@ class Optimizer:
         self.adam.zero_grad(set_to_none=True)
 
     def update(self) -> None:
-        """The device work of a step: the clip and Adam's update."""
+        """The device work of a step: the clip and Adam's update (on the
+        card the Adam kernel, on the CPU ``torch.optim.Adam.step``)."""
         if self.clip_grad is not None:
             torch.nn.utils.clip_grad_norm_(self.params, self.clip_grad)
-        self.adam.step()
+        if self.capturable:
+            self._kernel_update()
+        else:
+            self.adam.step()
+
+    def _kernel_update(self) -> None:
+        """Adam's step as one kernel launch on ``self.adam``'s own state,
+        created as torch's capturable Adam creates it for each parameter
+        with a gradient; parameters without one are skipped, as torch
+        skips them. A parameter the kernel does not take raises."""
+        group, = self.adam.param_groups
+        lists = ([], [], [], [], [])
+        for i, p in enumerate(group["params"]):
+            if p.grad is None:
+                continue
+            why = adam_kernel.refusal(p, p.grad)
+            if why is not None:
+                raise NotImplementedError(
+                    f"the Adam kernel does not take parameter {i} of shape "
+                    f"{tuple(p.shape)}: {why}")
+            st = self.adam.state[p]
+            if not st:
+                st["step"] = torch.zeros((), dtype=torch.float32,
+                                         device=p.device)
+                for key in ("exp_avg", "exp_avg_sq"):
+                    st[key] = torch.zeros_like(
+                        p, memory_format=torch.preserve_format)
+            for out, t in zip(lists, (p, p.grad, st["exp_avg"],
+                                      st["exp_avg_sq"], st["step"])):
+                out.append(t)
+        beta1, beta2 = group["betas"]
+        adam_kernel.adam_update(*lists, self._lr_t, beta1, beta2,
+                                group["eps"], group["weight_decay"],
+                                self._counter)
 
     def advance(self) -> None:
         """The host work after a step: the schedule's position and lr."""

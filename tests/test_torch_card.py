@@ -435,3 +435,200 @@ def test_tf32_in_the_amass_cells_program_is_caught(card, monkeypatch):
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
     res = run()
     assert not res["correct"], res["checks"]
+
+
+# ---------------------------------------------------------------- Adam kernel
+
+ADAM_CELLS = ("flagship", "autoreg", "amass")  # 52, 68 and 78 tensors
+ADAM_STEPS = 100   # across the milestone at step 50
+ADAM_SCHEDULE = dict(lr=1e-3, milestones=[2], steps_per_epoch=25)
+ADAM_ULPS = 0      # from torch's capturable Adam on the card, in ulps of
+                   # each tensor's largest magnitude: the same float32
+                   # operations in the same order, contracted alike (on the
+                   # H100 with torch 2.11 all three lists agree bit for bit)
+
+
+def _cell_params(cell, device, seed=0):
+    """The parameters of a benchmark cell's model, built from ``seed``."""
+    from types import SimpleNamespace
+
+    from motionmixerconv_tpu_torch.cli._runner import build_conv_mixer
+    from motionmixerconv_tpu_torch.models import ConvMixer, MlpMixer
+
+    gen = torch.Generator().manual_seed(seed)
+    if cell == "flagship":
+        args = SimpleNamespace(num_blocks=4, hidden_dim=50, activation="mish",
+                               regularization=0.1, r_se=8,
+                               encoder_n_harmonic_functions=64,
+                               encoder_omega0=0.1, fused_encoder=True)
+        model = build_conv_mixer(args, 66, 66, 10, 25, generator=gen)
+    elif cell == "autoreg":
+        model = ConvMixer(num_blocks=4, dimPosIn=66, dimPosEmb=192,
+                          dimPosOut=66, in_nTP=10, out_nTP=5, conv_nChan=8,
+                          conv1_kernel_shape=(5, 5), activation="mish",
+                          regularization=-1.0, use_se=True, r_se=8,
+                          encoder_n_harmonic_functions=0, generator=gen)
+    else:
+        model = MlpMixer(num_classes=54, num_blocks=5, hidden_dim=128,
+                         tokens_mlp_dim=20, channels_mlp_dim=128, seq_len=10,
+                         pred_len=25, activation="gelu", regularization=0.1,
+                         input_size=54, r_se=8, use_se=True, generator=gen)
+    return [torch.nn.Parameter(p.detach().to(device))
+            for p in model.parameters()]
+
+
+def _torch_route(opt):
+    """``opt`` stepping through ``torch.optim.Adam(capturable=True)``'s
+    multi-tensor route, the card's route before the kernel."""
+    for group in opt.adam.param_groups:
+        group["foreach"] = True
+    opt._kernel_update = opt.adam.step
+    return opt
+
+
+def _max_ulps(a, b) -> float:
+    """The largest difference of ``a`` from ``b`` in ulps of ``b``'s
+    largest magnitude (an element's own ulp is no unit near 0, where an
+    update's rounding is that of a larger number)."""
+    a, b = a.detach(), b.detach()
+    top = b.abs().max()
+    ulp = torch.nextafter(top, torch.full_like(top, float("inf"))) - top
+    return float((a - b).abs().max() / ulp)
+
+
+def _adam_steps(opts_and_params, card, steps, seed=1):
+    """``steps`` steps of each (optimizer, parameters) on one sequence of
+    gradients; the last parameter never gets one."""
+    gen = torch.Generator(card).manual_seed(seed)
+    for i in range(steps):
+        grads = [torch.randn(p.shape, device=card, generator=gen)
+                 * (1 + i % 3) for p in opts_and_params[0][1][:-1]]
+        for opt, ps in opts_and_params:
+            for p, g in zip(ps, grads):
+                p.grad = g.clone()
+            ps[-1].grad = None
+            opt.step()
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("cell", ADAM_CELLS)
+def test_adam_kernel_follows_torch_capturable_adam(card, cell):
+    """The kernel (``Optimizer.update`` on the card) against
+    ``torch.optim.Adam(capturable=True)`` at a cell's parameter list over
+    100 steps across a milestone, on one sequence of gradients: every
+    parameter and moment within ``ADAM_ULPS``, the counts equal, no state
+    for the parameter without a gradient; one launch a step; a second run
+    bit-identical."""
+    from motionmixerconv_tpu_torch.ops import adam
+
+    runs = [(make_optimizer(ps, **ADAM_SCHEDULE), ps)
+            for ps in (_cell_params(cell, card), _cell_params(cell, card))]
+    ref_ps = _cell_params(cell, card)
+    ref = _torch_route(make_optimizer(ref_ps, **ADAM_SCHEDULE))
+    before = adam.device_launches()
+    _adam_steps([*runs, (ref, ref_ps)], card, ADAM_STEPS)
+    assert adam.device_launches() - before == 2 * ADAM_STEPS
+    (opt, ps), (opt2, ps2) = runs
+    assert ps[-1] not in opt.adam.state and ref_ps[-1] not in ref.adam.state
+    worst = {"param": 0, "exp_avg": 0, "exp_avg_sq": 0}
+    for p, p2, q in zip(ps[:-1], ps2[:-1], ref_ps[:-1]):
+        st, st2, rt = opt.adam.state[p], opt2.adam.state[p2], ref.adam.state[q]
+        assert float(st["step"]) == float(rt["step"]) == ADAM_STEPS
+        worst["param"] = max(worst["param"], _max_ulps(p, q))
+        assert torch.equal(p, p2)
+        for key in ("exp_avg", "exp_avg_sq"):
+            worst[key] = max(worst[key], _max_ulps(st[key], rt[key]))
+            assert torch.equal(st[key], st2[key])
+    print(f"{cell}: {len(ps)} tensors, ulps from torch's capturable Adam "
+          f"{worst}")
+    assert max(worst.values()) <= ADAM_ULPS, worst
+
+
+@pytest.mark.card
+def test_a_captured_adam_step_replays_as_eager(card):
+    """A captured ``update`` replayed over steps that cross a milestone (the
+    lr tensor written between replays) equals eager steps bit for bit; the
+    device counts every replay and the capture runs nothing."""
+    from motionmixerconv_tpu_torch.ops import adam
+
+    kw = dict(lr=1e-3, milestones=[1], steps_per_epoch=4)
+    eager_ps, graph_ps = _cell_params("amass", card), _cell_params("amass",
+                                                                   card)
+    eager, graph_opt = make_optimizer(eager_ps, **kw), make_optimizer(
+        graph_ps, **kw)
+    gen = torch.Generator(card).manual_seed(3)
+    grads = [[torch.randn(p.shape, device=card, generator=gen)
+              for p in eager_ps] for _ in range(9)]
+    for p, q, g in zip(eager_ps, graph_ps, grads[0]):
+        p.grad, q.grad = g.clone(), g.clone()
+    eager.step()
+    graph_opt.step()  # the state exists before the capture
+    graph = torch.cuda.CUDAGraph()
+    start = adam.device_launches()
+    with torch.cuda.graph(graph):
+        graph_opt.update()
+    assert adam.device_launches() == start
+    for i in range(1, 9):
+        for p, q, g in zip(eager_ps, graph_ps, grads[i]):
+            p.grad = g.clone()
+            q.grad.copy_(g)
+        eager.step()
+        graph.replay()
+        graph_opt.advance()
+    assert adam.device_launches() - start == 2 * 8
+    assert graph_opt.lr == eager.lr < 1e-3
+    for p, q in zip(eager_ps, graph_ps):
+        assert torch.equal(p, q)
+        for key in ("step", "exp_avg", "exp_avg_sq"):
+            assert torch.equal(eager.adam.state[p][key],
+                               graph_opt.adam.state[q][key])
+
+
+@pytest.mark.card
+def test_flagship_step_graph_takes_one_adam_launch(card, monkeypatch):
+    """A flagship training epoch on the card never calls
+    ``torch.optim.Adam.step`` and launches the kernel once a step; its
+    captured step graph holds about 2N + 20 fewer nodes (N = 52 tensors)
+    than the same step through torch's capturable Adam."""
+    import numpy as np
+
+    from motionmixerconv_tpu_torch import profiling
+    from motionmixerconv_tpu_torch.cli._runner import build_conv_mixer
+    from motionmixerconv_tpu_torch.data import WindowedCorpus
+    from motionmixerconv_tpu_torch.data.constants import H36M_DIM_USED_XYZ
+    from motionmixerconv_tpu_torch.ops import adam
+    from motionmixerconv_tpu_torch.train import Trainer
+    from types import SimpleNamespace
+
+    args = SimpleNamespace(num_blocks=4, hidden_dim=50, activation="mish",
+                           regularization=0.1, r_se=8,
+                           encoder_n_harmonic_functions=64,
+                           encoder_omega0=0.1, fused_encoder=True)
+    frames = np.random.RandomState(5).randn(2000, 96).astype(np.float32) * 300
+    bs, steps = 50, 6
+    corpus = WindowedCorpus(frames, np.arange(steps * bs) * 3, 35)
+    on_card = torch.from_numpy(frames).to(card)
+
+    def nodes(route):
+        model = build_conv_mixer(args, 66, 66, 10, 25,
+                                 generator=torch.Generator().manual_seed(0))
+        opt = route(make_optimizer(model.to(card).parameters(), lr=1e-3))
+        trainer = Trainer(model, opt, loss_type="mpjpe",
+                          dim_used=H36M_DIM_USED_XYZ, input_n=10,
+                          output_n=25, input_scale=1e-3)
+        profiling.reset()
+        trainer.train_epoch(corpus, on_card, bs, seed=0)
+        return profiling.graph_nodes()["train"]["nodes"], len(opt.params)
+
+    real_step = torch.optim.Adam.step
+    monkeypatch.setattr(torch.optim.Adam, "step", lambda *a: pytest.fail(
+        "a training step on the card called torch.optim.Adam.step"))
+    before = adam.device_launches()
+    with_kernel, n = nodes(lambda opt: opt)
+    assert adam.device_launches() - before == steps
+    monkeypatch.setattr(torch.optim.Adam, "step", real_step)
+    with_torch, _ = nodes(_torch_route)
+    print(f"flagship step graph: {with_kernel} nodes with the kernel, "
+          f"{with_torch} through torch's Adam, {n} tensors")
+    assert n == 52
+    assert 2 * n + 10 <= with_torch - with_kernel <= 2 * n + 40

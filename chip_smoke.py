@@ -143,10 +143,7 @@ launching the two kernels and nothing else; their times beside their
 bound, the plain versions and cuDNN's convolution with the eager
 activation (the modules' route, from Python and on the device); and the flagship's training step (the
 CLI's 'same' padding) on graphs against its eager steps, its kernels a
-step by both routes and the backward kernel's launches a step. Phase 30
-runs in a process of its own, which is also how to run it alone:
-``python3 -c 'import chip_smoke; chip_smoke.conv_block_alone()'``.
-[31] the Adam kernel (``ops/adam.py``) at the parameter lists of the
+step by both routes and the backward kernel's launches a step, [31] the Adam kernel (``ops/adam.py``) at the parameter lists of the
 benchmark's three cells (flagship, autoregressive, AMASS: 52, 68, 78
 tensors): over 100 steps across a milestone against
 ``torch.optim.Adam(capturable=True)`` on one sequence of gradients, within
@@ -155,13 +152,18 @@ time per call and on the device beside its bound, its plain version on
 CUDA tensors and torch's capturable multi-tensor and fused Adam (the
 yardsticks, which the port never calls); the flagship's training step
 through it on graphs against its eager steps, and both routes' graph
-nodes, kernels, device time and samples/s a step. Phase 31 runs in a
-process of its own too: ``python3 -c 'import chip_smoke;
-chip_smoke.adam_alone()'``.
+nodes, kernels, device time and samples/s a step.
 Then the whole run's seconds, one JSON line with every kernel's
 numbers, the card's name and power limit, and the result line. Any failure exits non-zero; with
 no CUDA device, or with the port's package missing beside this script, it
 exits at once and prints no result.
+
+``PHASES`` holds the phases as rows of consecutive phases that share
+state, each a function of one ``Run``; phases 30 and 31 run in processes
+of their own. One row runs alone, after the rows it needs, with its
+results printed as one JSON line:
+
+    python3 -c 'import chip_smoke; chip_smoke.alone("adam")'
 """
 
 from __future__ import annotations
@@ -175,6 +177,7 @@ import subprocess
 import sys
 import time
 import urllib.request
+from functools import cached_property
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -1507,17 +1510,18 @@ def non_finite(np, hist, names) -> list:
     return [float(v) for v in values if not np.isfinite(float(v))]
 
 
-def angle_and_ais_paths(torch, np, dev, card, work, data_dir,
-                        counters) -> dict:
+def angle_and_ais_paths(torch, np, dev, card, work, data_dir, ais_dir,
+                        ais_corpus_s, counters) -> dict:
     """Phases 18-20: the main CLI at its true defaults (the angle loss) with
-    ``--fused_encoder``, the angle autoregressive CLI, and both AIS CLIs,
-    each driven with the launch ``counters`` set to 0 just before and read
+    ``--fused_encoder``, the angle autoregressive CLI, and both AIS CLIs on
+    the AIS corpus ``ais_dir`` (written in ``ais_corpus_s`` seconds), each
+    driven with the launch ``counters`` set to 0 just before and read
     just after its checkpoint is served; then their times. Returns the
     numbers the kernels line takes."""
     from motionmixerconv_tpu_torch.cli import (_runner, train_autoreg_mixer_ais,
                                                train_autoreg_mixer_h36m,
                                                train_mixer_ais, train_mixer_h36m)
-    from motionmixerconv_tpu_torch.data import AISDataset, H36MDataset, fixtures
+    from motionmixerconv_tpu_torch.data import AISDataset, H36MDataset
     from motionmixerconv_tpu_torch.data.constants import (
         AIS_ALL_ACTIONS, AIS_DIM_USED, AIS_TEST_ACTIONS, AIS_TRAIN_ACTIONS,
         H36M_DIM_USED_ANGLE)
@@ -1642,13 +1646,6 @@ def angle_and_ais_paths(torch, np, dev, card, work, data_dir,
 
     # [20] AIS: the synthetic keypoint corpus, both CLIs at their default
     # widths, their checkpoints served through B2
-    ais_dir = work / "ais"
-    shutil.rmtree(ais_dir, ignore_errors=True)
-    t0 = time.perf_counter()
-    fixtures.make_ais_corpus(str(ais_dir), actions=AIS_ALL_ACTIONS,
-                             n_frames=AIS_FRAMES,
-                             fail_frames=frozenset(AIS_FAIL_FRAMES), seed=SEED)
-    ais_corpus_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     test_ais = AISDataset(str(ais_dir), 10, 10, 2, AIS_TEST_ACTIONS, 0.15)
     ais_parse_s = time.perf_counter() - t0
@@ -2017,7 +2014,8 @@ def b3_grid(torch, dev) -> dict:
     return errs
 
 
-def study_paths(torch, np, dev, card, work, data_dir, counters) -> dict:
+def study_paths(torch, np, dev, card, work, data_dir, ais_dir,
+                counters) -> dict:
     """Phases 22-23: conv_study at its default widths on the card (one
     grid trial at --n_jobs 1, then two at --n_jobs 2 with the median
     pruner), its best trial served through B3, B3 at every kernel shape of
@@ -2078,7 +2076,7 @@ def study_paths(torch, np, dev, card, work, data_dir, counters) -> dict:
                             split=2)
     x_h36m = torch.as_tensor(np.stack([h36m_test[i] for i in range(128)])
                              )[:, :10, H36M_DIM_USED_XYZ] * 1e-3
-    ais_test = AISDataset(str(work / "ais"), 10, 25, 2, AIS_TEST_ACTIONS,
+    ais_test = AISDataset(str(ais_dir), 10, 25, 2, AIS_TEST_ACTIONS,
                           0.15)
     x_ais = torch.as_tensor(np.stack(
         [ais_test[int(i)] for i in np.linspace(0, len(ais_test) - 1, 128)]
@@ -2183,7 +2181,7 @@ def study_paths(torch, np, dev, card, work, data_dir, counters) -> dict:
     reset()
     with TimedObjective(autoreg_study, times, "autoreg"):
         t0 = time.perf_counter()
-        autoreg_study.main([*AR_STUDY_ARGV, "--data_dir", str(work / "ais"),
+        autoreg_study.main([*AR_STUDY_ARGV, "--data_dir", str(ais_dir),
                             "--study_dir", str(ar_dir)])
         ar_wall = time.perf_counter() - t0
     _, ar_rows = study_trials(ar_dir)
@@ -3453,13 +3451,14 @@ def cb_graph_and_counters(torch, conv_block, dev) -> dict:
     return {"calls": calls, "device": counted, "bit_for_bit": bits}
 
 
-def conv_block_path(torch, np, dev, card) -> dict:
+def conv_block_path(run) -> dict:
     """Phase 30: the single-channel ConvBlock kernels (see the docstring)."""
     from motionmixerconv_tpu_torch.data.constants import H36M_DIM_USED_XYZ
     from motionmixerconv_tpu_torch.models import ConvBlock, ConvMixer
     from motionmixerconv_tpu_torch.ops import conv_block
     from motionmixerconv_tpu_torch.train import Trainer, make_optimizer
 
+    torch, np, dev, card = run.torch, run.np, run.dev, run.card
     t_phase = time.perf_counter()
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3556,49 +3555,9 @@ def conv_block_path(torch, np, dev, card) -> dict:
             f"{st['idle']:.3f}, {st['samples_per_s']:.1f} samples/s"
             for route, st in steps.items())
         + f" | phase {seconds:.1f} s")
-    return {"cases": cases, "graph": graph, "steps": steps,
-            "seconds": seconds}
-
-
-def conv_block_alone() -> None:
-    """Phase 30 alone on the card, then the result line."""
-    import numpy as np
-    import torch
-
-    if not torch.cuda.is_available():
-        fail("torch sees no CUDA device")
-    sys.path.insert(0, str(ROOT))
-    card = card_line()
-    dev = torch.device(DEVICE)
-    torch.cuda.set_device(dev)
-    res = conv_block_path(torch, np, dev, card)
-    say(json.dumps({"conv_block": {
-        "cases": res["cases"], "steps": {
-            k: {kk: vv for kk, vv in v.items() if kk != "top"}
-            for k, v in res["steps"].items()}, "seconds": res["seconds"]}}))
-    say(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
-
-
-def conv_block_child() -> dict:
-    """Phase 30 in a process of its own (``conv_block_alone``), its lines
-    echoed; its results. In the process that ran phases 1-29 the
-    profiler's traces recorded no device kernel (twice, in whole runs on
-    the H100), while phase 30 alone records them."""
-    res = subprocess.run(
-        [sys.executable, "-c", "import chip_smoke; chip_smoke.conv_block_alone()"],
-        cwd=ROOT, capture_output=True, text=True, timeout=1200)
-    found = None
-    for line in res.stdout.splitlines():
-        if line.startswith('{"conv_block"'):
-            found = json.loads(line)["conv_block"]
-        elif not line.startswith('{"ok"'):
-            say(line)
-    if res.returncode != 0 or found is None:
-        fail(f"phase 30's process exited {res.returncode}: "
-             f"{res.stderr.strip()[-2000:]}")
-    return found
+    return {"cases": cases, "steps": {
+        k: {kk: vv for kk, vv in v.items() if kk != "top"}
+        for k, v in steps.items()}, "seconds": seconds}
 
 
 # phase 31: the Adam kernel at the parameter lists of the benchmark's cells
@@ -3720,7 +3679,7 @@ def adam_times(torch, adam, make_optimizer, dev, model) -> dict:
     return out
 
 
-def adam_path(torch, np, dev, card) -> dict:
+def adam_path(run) -> dict:
     """Phase 31: the Adam kernel (see the docstring)."""
     from motionmixerconv_tpu_torch import profiling
     from motionmixerconv_tpu_torch.data.constants import H36M_DIM_USED_XYZ
@@ -3728,6 +3687,7 @@ def adam_path(torch, np, dev, card) -> dict:
     from motionmixerconv_tpu_torch.ops import adam
     from motionmixerconv_tpu_torch.train import Trainer, make_optimizer
 
+    torch, np, dev, card = run.torch, run.np, run.dev, run.card
     t_phase = time.perf_counter()
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3817,66 +3777,104 @@ def adam_path(torch, np, dev, card) -> dict:
         for k, v in steps.items()}, "seconds": seconds}
 
 
-def adam_alone() -> None:
-    """Phase 31 alone on the card, then the result line."""
-    import numpy as np
-    import torch
+class Run:
+    """What the phases share: torch and numpy, the card (its device and its
+    ``nvidia-smi`` line), the kernels' library, the work directory, the
+    kernels' Python launch counters, the synthetic corpora, each written
+    from its seed when first read, and ``results``, each row's by name.
+    With no CUDA device, or with the port's package missing beside this
+    script, making one fails."""
 
-    if not torch.cuda.is_available():
-        fail("torch sees no CUDA device")
-    sys.path.insert(0, str(ROOT))
-    card = card_line()
-    dev = torch.device(DEVICE)
-    torch.cuda.set_device(dev)
-    res = adam_path(torch, np, dev, card)
-    say(json.dumps({"adam": res}))
-    say(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+    def __init__(self):
+        import numpy as np
+        import torch
+
+        if not torch.cuda.is_available():
+            fail("torch sees no CUDA device")
+        sys.path.insert(0, str(ROOT))
+        try:
+            import motionmixerconv_tpu_torch as pkg
+        except ImportError as e:
+            fail(f"the port's package is not beside this script: {e}")
+        if Path(pkg.__file__).resolve().parent.parent != ROOT:
+            fail(f"imported the port from {pkg.__file__}, not from {ROOT}")
+        from motionmixerconv_tpu_torch.ops import (conv_mixer, conv_mixer_mc,
+                                                   harmonic, mlp_mixer)
+
+        self.torch, self.np = torch, np
+        self.card = card_line()
+        self.dev = torch.device(DEVICE)
+        torch.cuda.set_device(self.dev)
+        self.work = ROOT / "build" / "chip_smoke"
+        self.counters = {"conv_mixer_fused": conv_mixer.LAUNCHES,
+                         "conv_mixer_mc": conv_mixer_mc.LAUNCHES,
+                         "harmonic_dense_fwd": harmonic.LAUNCHES,
+                         "harmonic_dense_bwd": harmonic.LAUNCHES_BWD,
+                         "mlp_mixer_fused": mlp_mixer.LAUNCHES}
+        self.results = {}
+        self.corpus_s = {}  # the seconds each corpus took to write
+
+    @property
+    def lib(self):
+        from motionmixerconv_tpu_torch.ops import _build
+
+        return _build.load_library()
+
+    def _corpus(self, name: str, make) -> Path:
+        path = self.work / name
+        t0 = time.perf_counter()
+        shutil.rmtree(path, ignore_errors=True)
+        make(str(path))
+        self.corpus_s[name] = time.perf_counter() - t0
+        return path
+
+    @cached_property
+    def h36m_dir(self) -> Path:
+        """The H36M CSV corpus: every action, CORPUS_FRAMES frames a file."""
+        from motionmixerconv_tpu_torch.data import fixtures
+
+        return self._corpus("h36m", lambda p: fixtures.make_h36m_corpus(
+            p, n_frames=CORPUS_FRAMES, seed=SEED))
+
+    @cached_property
+    def amass_dir(self) -> Path:
+        """The AMASS corpus: every split's directory, AMASS_CORPUS."""
+        from motionmixerconv_tpu_torch.data import fixtures
+        from motionmixerconv_tpu_torch.data.constants import AMASS_SPLITS
+
+        return self._corpus("amass", lambda p: fixtures.make_amass_corpus(
+            p, splits=AMASS_SPLITS, seed=SEED, **AMASS_CORPUS))
+
+    @cached_property
+    def ais_dir(self) -> Path:
+        """The AIS keypoint corpus: every action, AIS_FRAMES frames, the
+        detections failing on AIS_FAIL_FRAMES."""
+        from motionmixerconv_tpu_torch.data import fixtures
+        from motionmixerconv_tpu_torch.data.constants import AIS_ALL_ACTIONS
+
+        return self._corpus("ais", lambda p: fixtures.make_ais_corpus(
+            p, actions=AIS_ALL_ACTIONS, n_frames=AIS_FRAMES,
+            fail_frames=frozenset(AIS_FAIL_FRAMES), seed=SEED))
 
 
-def adam_child() -> dict:
-    """Phase 31 in a process of its own (``adam_alone``), as phase 30 runs,
-    its lines echoed; its results."""
-    res = subprocess.run(
-        [sys.executable, "-c", "import chip_smoke; chip_smoke.adam_alone()"],
-        cwd=ROOT, capture_output=True, text=True, timeout=1200)
-    found = None
-    for line in res.stdout.splitlines():
-        if line.startswith('{"adam"'):
-            found = json.loads(line)["adam"]
-        elif not line.startswith('{"ok"'):
-            say(line)
-    if res.returncode != 0 or found is None:
-        fail(f"phase 31's process exited {res.returncode}: "
-             f"{res.stderr.strip()[-2000:]}")
-    return found
+def walking_windows(torch, np, data_dir):
+    """The first 32 windows (10 + 25 frames) of the H36M corpus's walking
+    test split, and the split's used dims."""
+    from motionmixerconv_tpu_torch.data import H36MDataset
+
+    test_ds = H36MDataset(str(data_dir), 10, 25, 1, actions=["walking"],
+                          split=2)
+    return (torch.as_tensor(np.stack([test_ds[i] for i in range(32)])),
+            test_ds.dim_used)
 
 
-def main() -> None:
-    t_run = time.perf_counter()
-    import numpy as np
-    import torch
+def device_and_build(run) -> dict:
+    """Phases 1-2: the device and its settings; every kernel built from the
+    sources in this checkout."""
+    from motionmixerconv_tpu_torch.ops import _build
 
-    if not torch.cuda.is_available():
-        fail("torch sees no CUDA device")
-    sys.path.insert(0, str(ROOT))
-    try:
-        import motionmixerconv_tpu_torch as pkg
-    except ImportError as e:
-        fail(f"the port's package is not beside this script: {e}")
-    if Path(pkg.__file__).resolve().parent.parent != ROOT:
-        fail(f"imported the port from {pkg.__file__}, not from {ROOT}")
-    from motionmixerconv_tpu_torch.models import ConvMixer, MlpMixer
-    from motionmixerconv_tpu_torch.ops import (_build, conv_mixer, conv_mixer_mc,
-                                               harmonic, mlp_mixer)
-    from motionmixerconv_tpu_torch.serving import Predictor
-    from motionmixerconv_tpu_torch.serving_server import PredictionServer
-
+    torch, card = run.torch, run.card
     # [1] device and settings
-    card = card_line()
-    dev = torch.device(DEVICE)
-    torch.cuda.set_device(dev)
     say(f"[1 device] {card} | torch.cuda.get_device_name(0)="
         f"{torch.cuda.get_device_name(0)} | device_count="
         f"{torch.cuda.device_count()} | torch {torch.__version__} | CUDA "
@@ -3891,12 +3889,20 @@ def main() -> None:
              if "Used" in ln and "registers" in ln]
     say(f"[2 build] {build_s:.2f} s ({'built' if _build.build_log else 'cached'})"
         f" | ptxas: {' ; '.join(ptxas) or 'n/a'}")
+    return {"build_s": build_s}
 
+
+def flagship_kernels(run) -> dict:
+    """Phases 3-4: B2 and B1-fwd against their plain versions at the
+    flagship's shapes."""
+    from motionmixerconv_tpu_torch.models import ConvMixer
+    from motionmixerconv_tpu_torch.ops import conv_mixer, harmonic
+
+    torch, dev, lib = run.torch, run.dev, run.lib
     # [3] B2 against its plain version at the flagship shape and the
     # bn+maxpool+once model, B2_REPEATS launches of each case bit-identical;
     # each case's launch plan against the library and the card's shared
     # memory
-    lib = _build.load_library()
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     card_smem = lib.mmc_conv_mixer_card_smem()
     gen = torch.Generator().manual_seed(SEED)
@@ -3933,7 +3939,19 @@ def main() -> None:
         f"(tol {TOL_B1:g}); second launch bit-identical | " + " ; ".join(
             f"{i} R={r} {v:.3e}" for (i, r), v in b1_errs.items())
         + f" | launch plans (library agrees): {plans}")
+    return {"b2_err": b2_err, "b1_err": b1_err, "x_all": x_all,
+            "x_b1": x_b1, "enc": enc}
 
+
+def flagship_serve(run) -> dict:
+    """Phases 5-6: the flagship served over HTTP, and serving times."""
+    from motionmixerconv_tpu_torch.models import ConvMixer
+    from motionmixerconv_tpu_torch.ops import conv_mixer, harmonic
+    from motionmixerconv_tpu_torch.serving import Predictor
+    from motionmixerconv_tpu_torch.serving_server import PredictionServer
+
+    torch, dev, card = run.torch, run.dev, run.card
+    x_all = run.results["flagship_kernels"]["x_all"]
     # [5] the main path: a .pt checkpoint served over HTTP on the card
     ckpt = ROOT / "build" / "chip_smoke" / "flagship.pt"
     ckpt.parent.mkdir(parents=True, exist_ok=True)
@@ -4021,7 +4039,17 @@ def main() -> None:
         + f" | BatchingPredictor.predict latency ms: b=1 {bat_lat[1]:.3f} ; "
           f"b=32 {bat_lat[32]:.3f}"
         + f" | HTTP /predict latency ms: b=1 {lat[1]:.3f} ; b=32 {lat[32]:.3f}")
+    return {"launches": launches, "b2": b2}
 
+
+def flagship_step(run) -> dict:
+    """Phases 7-8: B1-bwd against its plain version; one flagship training
+    step against float64."""
+    from motionmixerconv_tpu_torch.models import ConvMixer
+    from motionmixerconv_tpu_torch.ops import harmonic
+
+    torch, dev = run.torch, run.dev
+    x_b1, enc = (run.results["flagship_kernels"][k] for k in ("x_b1", "enc"))
     # [7] B1-bwd against its plain version, twice for bit-identity
     gg = torch.Generator().manual_seed(SEED + 3)
     g_all = torch.randn(max(B1_BWD_ROWS), 50, generator=gg).to(dev)
@@ -4069,21 +4097,27 @@ def main() -> None:
                 fail(f"training step, {tag} gradient {k}: {err:.3e} > {tol:g}"
                      " against the float64 step")
     del steps
+    return {"g_all": g_all, "bwd_err": bwd_err}
 
+
+def flagship_train(run) -> dict:
+    """Phases 9-10: the training CLI on the H36M corpus, and training
+    times."""
+    from motionmixerconv_tpu_torch.cli import _runner, train_mixer_h36m
+    from motionmixerconv_tpu_torch.data import H36MDataset
+    from motionmixerconv_tpu_torch.data.constants import H36M_DIM_USED_XYZ
+    from motionmixerconv_tpu_torch.models import ConvMixer
+    from motionmixerconv_tpu_torch.ops import conv_mixer, harmonic
+    from motionmixerconv_tpu_torch.train import Trainer, make_optimizer
+
+    torch, np, dev, card, work = run.torch, run.np, run.dev, run.card, run.work
+    x_b1, enc = (run.results["flagship_kernels"][k] for k in ("x_b1", "enc"))
+    g_all = run.results["flagship_step"]["g_all"]
     # [9] the training path: the CLI on a synthetic corpus, 2 epochs as one
     # chunk (--epochs_per_dispatch 2), every step and evaluation batch a
     # replay of a captured CUDA graph; the same run in chunks of one epoch
     # and with the plain encoder beside it; the checkpoint served through B2
-    from motionmixerconv_tpu_torch.cli import _runner, train_mixer_h36m
-    from motionmixerconv_tpu_torch.data import H36MDataset, fixtures
-    from motionmixerconv_tpu_torch.train import Trainer
-
-    work = ROOT / "build" / "chip_smoke"
-    data_dir = work / "h36m"
-    t0 = time.perf_counter()
-    shutil.rmtree(data_dir, ignore_errors=True)
-    fixtures.make_h36m_corpus(str(data_dir), n_frames=CORPUS_FRAMES, seed=SEED)
-    corpus_s = time.perf_counter() - t0
+    data_dir, corpus_s = run.h36m_dir, run.corpus_s["h36m"]
     args = train_mixer_h36m.parse_args([*TRAIN_ARGV, "--data_dir", str(data_dir)])
     train_ds = H36MDataset(str(data_dir), args.input_n, args.output_n,
                            args.skip_rate, split=0)
@@ -4109,10 +4143,7 @@ def main() -> None:
         runs[tag] = (hist, time.perf_counter() - t0)
         if tag == "fused":
             # serve the trained checkpoint through B2, still on the path
-            test_ds = H36MDataset(str(data_dir), 10, 25, 1, actions=["walking"],
-                                  split=2)
-            dim_used = test_ds.dim_used
-            win = torch.as_tensor(np.stack([test_ds[i] for i in range(32)]))
+            win, dim_used = walking_windows(torch, np, data_dir)
             x_test = (win[:, :10, dim_used] * 1e-3).contiguous()
             _, got, serve_err, _ = serve_checks(
                 torch, dev, save / "h36_3d_25frames_ckpt" / _runner.STATE_FILE,
@@ -4183,8 +4214,6 @@ def main() -> None:
                     "run_s": run_s}
     # B1 at the training step's rows and the bulk rows
     b1t = b1_times(torch, harmonic, x_b1, g_all, enc, B1_BWD_ROWS)
-    from motionmixerconv_tpu_torch.data.constants import H36M_DIM_USED_XYZ
-    from motionmixerconv_tpu_torch.train import make_optimizer
 
     def flagship_trainer(regularization, **opt):
         model = ConvMixer(**dict(FLAGSHIP, regularization=regularization),
@@ -4230,13 +4259,29 @@ def main() -> None:
         f"differ between two replays of a captured training forward "
         f"{masks[0]:.3f} (eval mode {masks[1]:.3f}) | train steps (fused, "
         f"batch {TRAIN_BATCH}, dropout 0.1): {fmt_times(flag_times)}")
+    return {"b1_train": b1_train, "steps": steps,
+            "steps_per_epoch": steps_per_epoch,
+            "train_launches": train_launches, "b1t": b1t}
 
+
+def autoreg(run) -> dict:
+    """Phases 11-13: B3 against its plain version, the autoregressive CLI,
+    and its times."""
+    from motionmixerconv_tpu_torch.cli import _runner, train_autoreg_mixer_h36m
+    from motionmixerconv_tpu_torch.data import H36MDataset
+    from motionmixerconv_tpu_torch.data.constants import H36M_DIM_USED_XYZ
+    from motionmixerconv_tpu_torch.models import ConvMixer
+    from motionmixerconv_tpu_torch.ops import conv_mixer, conv_mixer_mc
+    from motionmixerconv_tpu_torch.train import (AutoregressiveTrainer,
+                                                 make_optimizer)
+
+    torch, np, dev, card, work = run.torch, run.np, run.dev, run.card, run.work
+    lib, data_dir = run.lib, run.h36m_dir
     # [11] B3 against its plain version: the autoregressive default (warmed
     # BatchNorm stats), the study shape and two widths that take clusters,
     # B3_REPEATS launches each for bit-identity (a race between a cluster's
     # blocks shows as a launch that differs); each launch plan against the
     # library
-    lib = _build.load_library()
     # the clusters the card holds at once, one block an SM, that the plans
     # are sized by (a plan within them runs its clusters in one wave)
     slots = conv_mixer_mc.cluster_slots(torch.cuda.current_device())
@@ -4330,8 +4375,6 @@ def main() -> None:
     # its train_state.pt rebuilt and served through B3, in process and over
     # HTTP (launch counts reset just before the CLI and read just after the
     # serving)
-    from motionmixerconv_tpu_torch.cli import train_autoreg_mixer_h36m
-
     ar_save = work / "runs_ar"
     shutil.rmtree(ar_save, ignore_errors=True)
     ar_argv = [*AR_ARGV, *EPD2, "--data_dir", str(data_dir), "--save_path",
@@ -4341,15 +4384,14 @@ def main() -> None:
                                  ar_args.output_n_dataset, ar_args.skip_rate,
                                  split=0))
     ar_steps = -(-n_train_ar // ar_args.batch_size)
-    counters = {"conv_mixer_fused": conv_mixer.LAUNCHES,
-                "conv_mixer_mc": conv_mixer_mc.LAUNCHES,
-                "harmonic_dense_fwd": harmonic.LAUNCHES,
-                "harmonic_dense_bwd": harmonic.LAUNCHES_BWD}
+    counters = {k: c for k, c in run.counters.items()
+                if k != "mlp_mixer_fused"}
     for c in counters.values():
         c.reset()
     t0 = time.perf_counter()
     ar_hist = train_autoreg_mixer_h36m.main(ar_argv)
     ar_run_s = time.perf_counter() - t0
+    win, dim_used = walking_windows(torch, np, data_dir)
     x_ar = win[:, :10, dim_used].contiguous()  # mm: this path feeds raw input
     served_ar, got, ar_err, ar_http_err = serve_checks(
         torch, dev, ar_save / "h36_ar_25frames_ckpt" / _runner.STATE_FILE,
@@ -4395,8 +4437,6 @@ def main() -> None:
 
     # [13] autoregressive times: the CLI's epochs (host clock around work
     # ending in a host read) and a profiled window of closed-loop steps
-    from motionmixerconv_tpu_torch.train import AutoregressiveTrainer
-
     def ar_trainer(**opt):
         model = ConvMixer(**AUTOREG,
                           generator=torch.Generator().manual_seed(SEED + 8))
@@ -4433,7 +4473,23 @@ def main() -> None:
         f" | teacher-forcing steps (batch {TRAIN_BATCH}): "
         f"{fmt_times(ar_times[True])} | closed-loop steps: "
         f"{fmt_times(ar_times[False])}")
+    return {"ar_launches": ar_launches, "b3_err": b3_err, "b3_t": b3_t,
+            "b3_plans": b3_plans}
 
+
+def amass(run) -> dict:
+    """Phases 14-16: B4 against its plain version, the AMASS CLI, and its
+    times."""
+    from motionmixerconv_tpu_torch.cli import _runner, train_mixer_amass
+    from motionmixerconv_tpu_torch.data import AMASSDataset
+    from motionmixerconv_tpu_torch.data.constants import AMASS_DIM_USED
+    from motionmixerconv_tpu_torch.models import MlpMixer
+    from motionmixerconv_tpu_torch.ops import mlp_mixer
+    from motionmixerconv_tpu_torch.serving_server import PredictionServer
+    from motionmixerconv_tpu_torch.train import Trainer, make_optimizer
+
+    torch, np, dev, card, work = run.torch, run.np, run.dev, run.card, run.work
+    counters = run.counters
     # [14] B4 against its plain version at the AMASS default and the
     # variants it takes, B4_REPEATS launches of each case bit-identical
     gm = torch.Generator().manual_seed(SEED + 9)
@@ -4466,22 +4522,13 @@ def main() -> None:
     # synthetic corpus, its train_state.pt served through B4 in process and
     # over HTTP with --arch auto (launch counts reset just before the CLI and
     # read just after the serving)
-    from motionmixerconv_tpu_torch.cli import train_mixer_amass
-    from motionmixerconv_tpu_torch.data import AMASSDataset
-    from motionmixerconv_tpu_torch.data.constants import AMASS_DIM_USED, AMASS_SPLITS
-
-    amass_dir = work / "amass"
-    t0 = time.perf_counter()
-    shutil.rmtree(amass_dir, ignore_errors=True)
-    fixtures.make_amass_corpus(str(amass_dir), splits=AMASS_SPLITS,
-                               seed=SEED, **AMASS_CORPUS)
-    amass_corpus_s = time.perf_counter() - t0
+    amass_dir = run.amass_dir
+    amass_corpus_s = run.corpus_s["amass"]
     am_save = work / "runs_amass"
     shutil.rmtree(am_save, ignore_errors=True)
     am_argv = [*AMASS_ARGV, *EPD2, "--data_dir", str(amass_dir),
                "--save_path", str(am_save)]
     am_args = train_mixer_amass.parse_args(am_argv)
-    counters["mlp_mixer_fused"] = mlp_mixer.LAUNCHES
     for c in (*counters.values(), mlp_mixer.PLAIN_CALLS):
         c.reset()
     t0 = time.perf_counter()
@@ -4581,45 +4628,133 @@ def main() -> None:
           f"{am_hist['epoch_s'][1]:.3f} | whole CLI run s {am_run_s:.2f} | "
           f"graph against eager (dropout off): {fmt_graph(am_graph)} | train "
           f"steps (batch {batch}, dropout 0.1): {fmt_times(am_times)}")
+    return {"am_launches": am_launches, "b4_err": b4_err, "b4_t": b4_t}
 
-    # [17] the kernels at the angle and AIS paths' shapes; [18]-[20] those
-    # paths, each from its CLI at its defaults to its served checkpoint
-    models = cli_models(torch)
-    new = new_shape_kernels(torch, dev, _build.load_library(), card, models)
-    paths = angle_and_ais_paths(torch, np, dev, card, work, data_dir,
-                                counters)
 
-    # [21] checkpoint interchange; [22]-[23] the studies, each from its
-    # module's main to its best trial served through its kernel
-    interchange = checkpoint_interchange(torch, np, dev, card, work, data_dir,
-                                         counters, steps_per_epoch)
-    studies = study_paths(torch, np, dev, card, work, data_dir, counters)
+# The phases in their order, as rows (numbers, name, function, needs,
+# own_process) of consecutive phases that share state. A row's function
+# takes the Run and returns its results; it reads other rows' results only
+# from the rows its ``needs`` names, which run before it. An own_process row
+# runs in a child process (``child``): in the process that ran phases 1-29
+# the profiler's traces recorded no device kernel (twice, in whole runs on
+# the H100), while those phases alone record them.
+PHASES = (
+    ((1, 2), "device_and_build", device_and_build, (), False),
+    ((3, 4), "flagship_kernels", flagship_kernels, (), False),
+    ((5, 6), "flagship_serve", flagship_serve, ("flagship_kernels",), False),
+    ((7, 8), "flagship_step", flagship_step, ("flagship_kernels",), False),
+    ((9, 10), "flagship_train", flagship_train,
+     ("flagship_kernels", "flagship_step"), False),
+    ((11, 12, 13), "autoreg", autoreg, (), False),
+    ((14, 15, 16), "amass", amass, (), False),
+    ((17,), "new_shapes", lambda r: new_shape_kernels(
+        r.torch, r.dev, r.lib, r.card, cli_models(r.torch)), (), False),
+    ((18, 19, 20), "angle_and_ais", lambda r: angle_and_ais_paths(
+        r.torch, r.np, r.dev, r.card, r.work, r.h36m_dir, r.ais_dir,
+        r.corpus_s["ais"], r.counters), (), False),
+    # phase 9's checkpoint and its steps an epoch
+    ((21,), "interchange", lambda r: checkpoint_interchange(
+        r.torch, r.np, r.dev, r.card, r.work, r.h36m_dir, r.counters,
+        r.results["flagship_train"]["steps_per_epoch"]),
+     ("flagship_train",), False),
+    ((22, 23), "studies", lambda r: study_paths(
+        r.torch, r.np, r.dev, r.card, r.work, r.h36m_dir, r.ais_dir,
+        r.counters), (), False),
+    ((24,), "parity", lambda r: parity_paths(
+        r.torch, r.np, r.dev, r.card, r.work, r.counters), (), False),
+    ((25,), "cmu", lambda r: cmu_path(
+        r.torch, r.np, r.dev, r.card, r.work, r.counters), (), False),
+    ((26,), "mesh", lambda r: mesh_path(
+        r.torch, r.np, r.dev, r.card, r.counters), (), False),
+    ((27,), "bf16", lambda r: bf16_path(
+        r.torch, r.np, r.dev, r.card, r.counters), (), False),
+    ((28,), "viz", lambda r: viz_path(
+        r.torch, r.np, r.dev, r.card, r.work, r.counters), (), False),
+    ((29,), "runbook", lambda r: runbook_path(
+        r.torch, r.np, r.dev, r.card, r.work, {
+            "H36M_DATA": str(r.h36m_dir), "AIS_DATA": str(r.ais_dir),
+            "AMASS_DATA": str(r.amass_dir)}, r.counters), (), False),
+    ((30,), "conv_block", conv_block_path, (), True),
+    ((31,), "adam", adam_path, (), True),
+)
 
-    # [24] the parity runs at their full schedules, their trained models
-    # through B2, B3 and B4; [25] the CMU pipeline to B4
-    parity = parity_paths(torch, np, dev, card, work, counters)
-    cmu = cmu_path(torch, np, dev, card, work, counters)
 
-    # [26] the data-parallel mesh: NCCL ranks, gloo ranks, Predictor(mesh=);
-    # [27] the bf16 compute dtype
-    mesh = mesh_path(torch, np, dev, card, counters)
-    bf16 = bf16_path(torch, np, dev, card, counters)
+def ok_line(torch) -> str:
+    return json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}})
 
-    # [28] the native reader, the first chunk's profiler trace, the
-    # galleries and predictions on the card, --visualize
-    viz = viz_path(torch, np, dev, card, work, counters)
 
-    # [29] every block of the port's runbook on the card, each trained
-    # model served through its kernel
-    runbook = runbook_path(torch, np, dev, card, work, {
-        "H36M_DATA": str(data_dir), "AIS_DATA": str(work / "ais"),
-        "AMASS_DATA": str(amass_dir)}, counters)
+def printable(v):
+    """``v`` as JSON holds it: keys as strings, a value JSON has no form for
+    by its type's name."""
+    if isinstance(v, dict):
+        return {str(k): printable(x) for k, x in v.items()}
+    if isinstance(v, (list, tuple)):
+        return [printable(x) for x in v]
+    if v is None or isinstance(v, (str, int, float)):
+        return v
+    if getattr(v, "ndim", None) == 0:  # a numpy or torch scalar
+        return v.item()
+    return f"<{type(v).__name__}>"
 
-    # [30] the single-channel ConvBlock kernels
-    cb = conv_block_child()
 
-    # [31] the Adam kernel
-    adam_res = adam_child()
+def alone(name: str) -> None:
+    """The row ``name`` alone on the card, after the rows its ``needs``
+    name (and theirs), then its results as one JSON line
+    ``{"<name>": results}`` and the result line:
+    ``python3 -c 'import chip_smoke; chip_smoke.alone("adam")'``."""
+    rows = {row[1]: row for row in PHASES}
+    if name not in rows:
+        fail(f"no row {name!r}; the rows: {', '.join(rows)}")
+    wanted, todo = set(), [name]
+    while todo:
+        n = todo.pop()
+        wanted.add(n)
+        todo += rows[n][3]
+    run = Run()
+    for _, n, fn, _, _ in PHASES:
+        if n in wanted:
+            run.results[n] = fn(run)
+    say(json.dumps({name: printable(run.results[name])}))
+    say(ok_line(run.torch))
+
+
+def child(name: str) -> dict:
+    """The row ``name`` in a process of its own (``alone``), its lines
+    echoed; its results."""
+    numbers = next(row[0] for row in PHASES if row[1] == name)
+    res = subprocess.run(
+        [sys.executable, "-c", f"import chip_smoke; chip_smoke.alone({name!r})"],
+        cwd=ROOT, capture_output=True, text=True, timeout=1200)
+    found = None
+    for line in res.stdout.splitlines():
+        if line.startswith(f'{{"{name}":'):
+            found = json.loads(line)[name]
+        elif not line.startswith('{"ok"'):
+            say(line)
+    if res.returncode != 0 or found is None:
+        fail(f"phase {'-'.join(map(str, numbers))}'s process exited "
+             f"{res.returncode}: {res.stderr.strip()[-2000:]}")
+    return found
+
+
+def kernels_line(r: dict) -> list:
+    """Every kernel's checks, times and launches on every path, from the
+    rows' results ``r``."""
+    b2_err, b1_err = (r["flagship_kernels"][k] for k in ("b2_err", "b1_err"))
+    launches, b2 = (r["flagship_serve"][k] for k in ("launches", "b2"))
+    bwd_err = r["flagship_step"]["bwd_err"]
+    b1_train, steps, train_launches, b1t = (r["flagship_train"][k] for k in (
+        "b1_train", "steps", "train_launches", "b1t"))
+    ar_launches, b3_err, b3_t, b3_plans = (r["autoreg"][k] for k in (
+        "ar_launches", "b3_err", "b3_t", "b3_plans"))
+    am_launches, b4_err, b4_t = (r["amass"][k] for k in (
+        "am_launches", "b4_err", "b4_t"))
+    new, paths, interchange, studies, parity, cmu, mesh, bf16, viz, \
+        runbook, cb, adam_res = (r[k] for k in (
+            "new_shapes", "angle_and_ais", "interchange", "studies", "parity",
+            "cmu", "mesh", "bf16", "viz", "runbook", "conv_block", "adam"))
 
     def runbook_f64(kernel):
         """The runbook's trained models served by ``kernel``, each
@@ -4803,6 +4938,20 @@ def main() -> None:
             "bound_ms": t["bound_us"] / 1e3, "bound_by": "bytes"}
             for c, t in adam_res["times"].items()},
         "train_step_launches": adam_res["steps"]["kernel"]["adam_per_step"]})
+    return kernels
+
+
+def main() -> None:
+    """Every row of PHASES in order, then the whole run's seconds, the
+    kernels line, the card line and the result line."""
+    t_run = time.perf_counter()
+    run = Run()
+    for _, name, fn, _, own_process in PHASES:
+        run.results[name] = child(name) if own_process else fn(run)
+    interchange, studies, parity, cmu, mesh, bf16, viz, runbook, cb, \
+        adam_res = (run.results[k] for k in (
+            "interchange", "studies", "parity", "cmu", "mesh", "bf16", "viz",
+            "runbook", "conv_block", "adam"))
     say(f"[run] {time.perf_counter() - t_run:.1f} s, the kernels' build "
         f"included | phases 21-23: {interchange['seconds']:.1f} s "
         f"interchange, conv_study calls "
@@ -4818,11 +4967,9 @@ def main() -> None:
         f"{viz['seconds']:.1f} s, phase 29 (runbook) "
         f"{runbook['phase_s']:.1f} s, phase 30 (conv_block) "
         f"{cb['seconds']:.1f} s, phase 31 (adam) {adam_res['seconds']:.1f} s")
-    say(json.dumps({"kernels": kernels}))
-    say(card)
-    say(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+    say(json.dumps({"kernels": kernels_line(run.results)}))
+    say(run.card)
+    say(ok_line(run.torch))
 
 
 if __name__ == "__main__":

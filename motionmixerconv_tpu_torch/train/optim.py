@@ -111,17 +111,13 @@ class Optimizer:
         """Adam's step as one kernel launch on ``self.adam``'s own state,
         created as torch's capturable Adam creates it for each parameter
         with a gradient; parameters without one are skipped, as torch
-        skips them. A parameter the kernel does not take raises."""
+        skips them. ``adam_update`` refuses a tensor the kernel does not
+        take."""
         group, = self.adam.param_groups
         lists = ([], [], [], [], [])
-        for i, p in enumerate(group["params"]):
+        for p in group["params"]:
             if p.grad is None:
                 continue
-            why = adam_kernel.refusal(p, p.grad)
-            if why is not None:
-                raise NotImplementedError(
-                    f"the Adam kernel does not take parameter {i} of shape "
-                    f"{tuple(p.shape)}: {why}")
             st = self.adam.state[p]
             if not st:
                 st["step"] = torch.zeros((), dtype=torch.float32,

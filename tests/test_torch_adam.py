@@ -223,13 +223,25 @@ def test_card_route_calls_the_kernel_with_torchs_capturable_state(
         torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
-def test_card_route_refuses_a_parameter_the_kernel_does_not_take(card_route):
-    ps = [torch.nn.Parameter(torch.ones(3)),
+def test_card_route_refuses_a_parameter_the_kernel_does_not_take(
+        card_route, monkeypatch):
+    """The optimizer checks nothing itself: ``adam_update``'s check, which
+    runs on CUDA tensors (run here on the CPU ones of the card's route),
+    refuses the tensor, naming its index and shape."""
+    real = adam.adam_update
+
+    def checked(*args):  # lists, lr, beta1, beta2, eps, decay, counter
+        adam._check(*args[:6], args[10])
+        real(*args)
+
+    monkeypatch.setattr(adam, "adam_update", checked)
+    ps =[torch.nn.Parameter(torch.ones(3)),
           torch.nn.Parameter(torch.ones(2, dtype=torch.float64))]
     opt = make_optimizer(ps, lr=1e-3)
     for p in ps:
         p.grad = torch.ones_like(p)
-    with pytest.raises(NotImplementedError, match=r"parameter 1 of shape"):
+    with pytest.raises(NotImplementedError,
+                       match=r"tensor 1 of shape \(2,\): .*not float32"):
         opt.update()
 
 

@@ -264,6 +264,27 @@ def test_chip_smoke_runs_every_block():
     assert not set(cs.RUNBOOK_KERNELS) & set(cs.RUNBOOK_AFTER)
 
 
+def test_chip_smoke_phases_are_one_table(capsys):
+    """chip_smoke.py's PHASES runs phases 1-31 once each, in order; its rows
+    have unique names, need only earlier rows and take one argument (the
+    Run); ``alone`` refuses a name that is not a row, naming the rows,
+    before it looks for a card."""
+    import inspect
+
+    cs = _chip_smoke()
+    assert [n for row in cs.PHASES for n in row[0]] == list(range(1, 32))
+    names = [row[1] for row in cs.PHASES]
+    assert len(set(names)) == len(names)
+    for i, (_, name, fn, needs, _) in enumerate(cs.PHASES):
+        assert set(needs) <= set(names[:i]), name
+        assert len(inspect.signature(fn).parameters) == 1, name
+    with pytest.raises(SystemExit) as e:
+        cs.alone("no_such_phase")
+    assert e.value.code != 0
+    out = capsys.readouterr().out
+    assert "no_such_phase" in out and all(n in out for n in names)
+
+
 @pytest.mark.parametrize("argv,stdin,printed", [
     (["-m", f"{PORT_PKG}.cli.train_mixer_amass", "--help"], None, "usage:"),
     (["-"], "import sys; print(__name__, sys.argv)", "__main__ ['-']"),

@@ -639,11 +639,16 @@ def test_chip_smoke_imports_no_jax():
     assert not roots & {"jax", "flax", "motionmixerconv_tpu"}, roots
 
 
-def test_chip_smoke_fails_without_a_card():
-    """No CUDA device: the script exits non-zero and prints no result line."""
+@pytest.mark.parametrize("argv", [
+    [os.path.join(REPO, "chip_smoke.py")],
+    ["-c", "import chip_smoke; chip_smoke.alone('adam')"],
+], ids=["script", "alone"])
+def test_chip_smoke_fails_without_a_card(argv):
+    """No CUDA device: the script, and one row run alone, exit non-zero and
+    print no result line."""
     if torch.cuda.is_available():
         pytest.skip("a card is present; chip_smoke.py would run for real")
-    res = subprocess.run([sys.executable, os.path.join(REPO, "chip_smoke.py")],
-                         cwd=REPO, capture_output=True, text=True, timeout=120)
+    res = subprocess.run([sys.executable, *argv], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
     assert res.returncode != 0
     assert '"ok": true' not in res.stdout

@@ -152,14 +152,21 @@ time per call and on the device beside its bound, its plain version on
 CUDA tensors and torch's capturable multi-tensor and fused Adam (the
 yardsticks, which the port never calls); the flagship's training step
 through it on graphs against its eager steps, and both routes' graph
-nodes, kernels, device time and samples/s a step.
+nodes, kernels, device time and samples/s a step, [32] the multi-channel
+ConvBlock kernels (``ops/conv_block_mc.py``) at the autoregressive cell's
+shape (N 50, C 8, T 10, E 192, (5,5)) and the conv and autoregressive
+studies' (C 8 up to (9,29), C 4), and at 24 channels: a, dx, dw and db
+against float64 and bit-identical over repeats; each direction's device
+time (all its kernels) and time per call beside its bound, the plain
+version's and cuDNN's route (the modules, with the eager activation; on
+the device too).
 Then the whole run's seconds, one JSON line with every kernel's
 numbers, the card's name and power limit, and the result line. Any failure exits non-zero; with
 no CUDA device, or with the port's package missing beside this script, it
 exits at once and prints no result.
 
 ``PHASES`` holds the phases as rows of consecutive phases that share
-state, each a function of one ``Run``; phases 30 and 31 run in processes
+state, each a function of one ``Run``; phases 30 to 32 run in processes
 of their own. One row runs alone, after the rows it needs, with its
 results printed as one JSON line:
 
@@ -3560,6 +3567,139 @@ def conv_block_path(run) -> dict:
         for k, v in steps.items()}, "seconds": seconds}
 
 
+# phase 32: the multi-channel ConvBlock kernels at the autoregressive
+# cell's shape and the studies' (N, C, T, E, taps, activation)
+CBMC_CASES = (
+    ("autoregressive 5x5", 50, 8, 10, 192, (5, 5), "mish"),
+    ("conv_study 9x29", 50, 8, 10, 192, (9, 29), "mish"),
+    ("conv_study 5x13", 50, 8, 10, 192, (5, 13), "mish"),
+    ("conv_study 1x1", 50, 8, 10, 192, (1, 1), "mish"),
+    ("autoreg_study 9x9", 50, 4, 10, 192, (9, 9), "mish"),
+    ("autoreg_study 5x5 gelu", 50, 4, 10, 192, (5, 5), "gelu"),
+    ("24 channels 5x5", 50, 24, 10, 192, (5, 5), "mish"),
+)
+CBMC_REPEATS = 5  # launches of each case that must agree bit for bit
+TOL_CBMC = 1e-5   # of the largest magnitude: f32 sums of C kh kw terms, and
+                  # dw's and db's of the batch's positions, in other orders
+
+
+def cbmc_work(n, c, t, e, k, backward: bool):
+    """(bytes, operations) of one call: forward x in, a and act'(z) out, and
+    2 C kh kw operations an output; backward x, g and act'(z) in, dx out,
+    and twice the forward's operations (dx and dw)."""
+    plane = n * c * t * e
+    ops = 2 * plane * c * k[0] * k[1]
+    weights = c * c * k[0] * k[1] + c
+    if not backward:
+        return 4 * (3 * plane + weights), ops
+    return 4 * (4 * plane + 2 * weights), 2 * ops
+
+
+def check_conv_block_mc(torch, mod, dev, case) -> dict:
+    """One case of CBMC_CASES: the kernels against float64 (and the plain
+    versions, cuDNN with TF32 off, beside them), CBMC_REPEATS launches bit
+    for bit, then each direction's device time (all its kernels, profiler)
+    and time per call beside its bound, the plain version's and cuDNN's
+    route (the modules: the convolution and the eager activation, autograd
+    backward) a call and on the device."""
+    import torch.nn.functional as F
+
+    tag, n, c, t, e, k, act = case
+    gen = torch.Generator().manual_seed(SEED + 32)
+    x, g = (torch.randn(n, c, t, e, generator=gen).to(dev) for _ in range(2))
+    w = (torch.randn(c, c, *k, generator=gen) / (c * k[0] * k[1]) ** 0.5
+         ).to(dev)
+    b = (torch.randn(c, generator=gen) * 0.1).to(dev)
+    plain_before = mod.PLAIN_CALLS.value
+
+    def fwd():
+        return mod.conv_block_mc_fwd(x, w, b, act, with_grad=True)
+
+    da = fwd()[1]
+
+    def bwd():
+        return mod.conv_block_mc_bwd(x, da, g, w, b, act)
+
+    outs = [[*fwd(), *bwd()] for _ in range(CBMC_REPEATS)]
+    torch.cuda.synchronize()
+    if not all(torch.equal(u, v) for o in outs for u, v in zip(o, outs[0])):
+        fail(f"conv_block_mc {tag}: launches differ")
+    if mod.PLAIN_CALLS.value != plain_before:
+        fail(f"conv_block_mc {tag}: a CUDA tensor took a plain version")
+    d = [v.double() for v in (x, g, w, b)]
+    want = [mod.conv_block_mc_plain(d[0], d[2], d[3], act),
+            *mod.conv_block_mc_bwd_plain(*d, act)]
+    plain = [mod.conv_block_mc_plain(x, w, b, act),
+             *mod.conv_block_mc_bwd_plain(x, g, w, b, act)]
+    errs = {}
+    for name, got, ref, pl in zip(("a", "dx", "dw", "db"),
+                                  [outs[0][0], *outs[0][2:]], want, plain):
+        scale = float(ref.abs().max())
+        errs[name] = (float((got.double() - ref).abs().max()) / scale,
+                      float((pl.double() - ref).abs().max()) / scale)
+        if not errs[name][0] <= TOL_CBMC:
+            fail(f"conv_block_mc {tag}: {name} {errs[name][0]:.3e} of the "
+                 f"largest from float64 (tol {TOL_CBMC:g})")
+    xr, wr, br = (v.clone().requires_grad_() for v in (x, w, b))
+    fn = mod.get_activation(act)
+
+    def library_fwd():
+        return fn(F.conv2d(x, w, b, padding="same"))
+
+    def library():
+        return torch.autograd.grad(fn(F.conv2d(xr, wr, br, padding="same")),
+                                   (xr, wr, br), g)
+
+    times = {
+        "fwd": {"ms": cuda_ms(torch, fwd),
+                "device_us": (device_profile(torch, fwd) or {}).get("us"),
+                "plain_ms": cuda_ms(torch, lambda: mod.conv_block_mc_plain(
+                    x, w, b, act)),
+                "library_ms": cuda_ms(torch, library_fwd),
+                "library_device_us": (device_profile(torch, library_fwd)
+                                      or {}).get("us"),
+                "bound": bound(*cbmc_work(n, c, t, e, k, False))},
+        "bwd": {"ms": cuda_ms(torch, bwd),
+                "device_us": (device_profile(torch, bwd) or {}).get("us"),
+                "plain_ms": cuda_ms(torch, lambda: mod.conv_block_mc_bwd_plain(
+                    x, g, w, b, act)),
+                "bound": bound(*cbmc_work(n, c, t, e, k, True))},
+        "fwd+bwd": {"library_ms": cuda_ms(torch, library),
+                    "library_device_us": (device_profile(torch, library)
+                                          or {}).get("us")}}
+    return {"err": errs, "times": times,
+            "plan": str(mod.plan(c, t, e, *k))}
+
+
+def conv_block_mc_path(run) -> dict:
+    """Phase 32: the multi-channel ConvBlock kernels (see the docstring)."""
+    from motionmixerconv_tpu_torch.ops import conv_block_mc
+
+    torch, card = run.torch, run.card
+    t_phase = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cases = {c[0]: check_conv_block_mc(torch, conv_block_mc, run.dev, c)
+             for c in CBMC_CASES}
+    seconds = time.perf_counter() - t_phase
+
+    def fmt_case(tag, c):
+        errs = ", ".join(f"{k} {v[0]:.2e} (plain {v[1]:.2e})"
+                         for k, v in c["err"].items())
+        ts = "; ".join(
+            f"{k} " + ", ".join(
+                f"{kk} {vv:.4f}" if isinstance(vv, float) else f"{kk} {vv}"
+                for kk, vv in v.items())
+            for k, v in c["times"].items())
+        return f"{tag}: {errs} | {ts}"
+
+    say(f"[32 conv_block_mc] {card} | of the largest from float64 (tol "
+        f"{TOL_CBMC:g}), {CBMC_REPEATS} launches bit-identical: "
+        + " ;; ".join(fmt_case(t, c) for t, c in cases.items())
+        + f" | phase {seconds:.1f} s")
+    return {"cases": cases, "seconds": seconds}
+
+
 # phase 31: the Adam kernel at the parameter lists of the benchmark's cells
 ADAM_STEPS = 100  # steps held to torch's capturable Adam, across a milestone
 ADAM_SCHEDULE = dict(lr=1e-3, milestones=[2], steps_per_epoch=25)
@@ -4676,6 +4816,7 @@ PHASES = (
             "AMASS_DATA": str(r.amass_dir)}, r.counters), (), False),
     ((30,), "conv_block", conv_block_path, (), True),
     ((31,), "adam", adam_path, (), True),
+    ((32,), "conv_block_mc", conv_block_mc_path, (), True),
 )
 
 
@@ -4752,9 +4893,10 @@ def kernels_line(r: dict) -> list:
     am_launches, b4_err, b4_t = (r["amass"][k] for k in (
         "am_launches", "b4_err", "b4_t"))
     new, paths, interchange, studies, parity, cmu, mesh, bf16, viz, \
-        runbook, cb, adam_res = (r[k] for k in (
+        runbook, cb, adam_res, cbmc = (r[k] for k in (
             "new_shapes", "angle_and_ais", "interchange", "studies", "parity",
-            "cmu", "mesh", "bf16", "viz", "runbook", "conv_block", "adam"))
+            "cmu", "mesh", "bf16", "viz", "runbook", "conv_block", "adam",
+            "conv_block_mc"))
 
     def runbook_f64(kernel):
         """The runbook's trained models served by ``kernel``, each
@@ -4938,6 +5080,21 @@ def kernels_line(r: dict) -> list:
             "bound_ms": t["bound_us"] / 1e3, "bound_by": "bytes"}
             for c, t in adam_res["times"].items()},
         "train_step_launches": adam_res["steps"]["kernel"]["adam_per_step"]})
+    for direction in ("fwd", "bwd"):
+        kernels.append({
+            "name": f"conv_block_mc_{direction}", "route": "cuda",
+            "source": "motionmixerconv_tpu_torch/csrc/conv_block_mc.cu",
+            "replaces": None, "max_err_of_largest": max(
+                v[0] for c in cbmc["cases"].values()
+                for n, v in c["err"].items()
+                if (n == "a") == (direction == "fwd")),
+            "by_case": {tag: {
+                "ms": c["times"][direction]["ms"],
+                "device_us": c["times"][direction]["device_us"],
+                "plain_ms": c["times"][direction]["plain_ms"],
+                "bound_ms": c["times"][direction]["bound"][0],
+                "bound_by": c["times"][direction]["bound"][1]}
+                for tag, c in cbmc["cases"].items()}})
     return kernels
 
 
@@ -4949,9 +5106,9 @@ def main() -> None:
     for _, name, fn, _, own_process in PHASES:
         run.results[name] = child(name) if own_process else fn(run)
     interchange, studies, parity, cmu, mesh, bf16, viz, runbook, cb, \
-        adam_res = (run.results[k] for k in (
+        adam_res, cbmc = (run.results[k] for k in (
             "interchange", "studies", "parity", "cmu", "mesh", "bf16", "viz",
-            "runbook", "conv_block", "adam"))
+            "runbook", "conv_block", "adam", "conv_block_mc"))
     say(f"[run] {time.perf_counter() - t_run:.1f} s, the kernels' build "
         f"included | phases 21-23: {interchange['seconds']:.1f} s "
         f"interchange, conv_study calls "
@@ -4966,7 +5123,8 @@ def main() -> None:
         f"phase 27 (bf16) {bf16['seconds']:.1f} s, phase 28 (viz) "
         f"{viz['seconds']:.1f} s, phase 29 (runbook) "
         f"{runbook['phase_s']:.1f} s, phase 30 (conv_block) "
-        f"{cb['seconds']:.1f} s, phase 31 (adam) {adam_res['seconds']:.1f} s")
+        f"{cb['seconds']:.1f} s, phase 31 (adam) {adam_res['seconds']:.1f} s, "
+        f"phase 32 (conv_block_mc) {cbmc['seconds']:.1f} s")
     say(json.dumps({"kernels": kernels_line(run.results)}))
     say(run.card)
     say(ok_line(run.torch))

@@ -22,7 +22,7 @@ from typing import Optional, Tuple, Union
 import torch
 from torch import nn
 
-from ..ops import conv_block
+from ..ops import conv_block, conv_block_mc
 from ..ops.activations import gelu_exact, get_activation
 from .common import (Conv2d, Linear, Regularization, layer_norm,
                      torch_default_init_)
@@ -76,12 +76,15 @@ class MultiChanSELayer(nn.Module):
 class ConvBlock(nn.Module):
     """Conv2d -> activation -> regularization on (B, C, T, E).
 
-    A block of one channel at stride 1 with 'same' padding (or the explicit
-    padding an odd kernel's 'same' gives) and no compute dtype
-    (``one_kernel``) runs its conv and activation on float32 CUDA
-    tensors as one kernel each way (``ops/conv_block.py``); every other
-    block, and every CPU tensor, runs the modules. The regularization stays
-    its own module either way."""
+    At stride 1 with 'same' padding (or the explicit padding an odd
+    kernel's 'same' gives) and no compute dtype, a block runs its conv and
+    activation on float32 CUDA tensors through hand-written kernels: of one
+    channel (``one_kernel``) one kernel each way (``ops/conv_block.py``);
+    of two or more channels with odd kernels (``mc_kernel``) one kernel
+    forward and two backward (``ops/conv_block_mc.py``), where the plan's
+    tiles fit a block's shared memory. Every other block, and every CPU
+    tensor, runs the modules. The regularization stays its own module
+    either way."""
 
     def __init__(self, conv_nChan: int, kernel_shape=(1, 3), stride=(1, 1),
                  padding: Pad = "same", activation: str = "gelu",
@@ -93,15 +96,19 @@ class ConvBlock(nn.Module):
         self.activation = activation
         self.act = get_activation(activation)
         self.reg = Regularization(regularization, conv_nChan, dtype=dtype)
-        self.one_kernel = (conv_nChan == 1 and tuple(stride) == (1, 1)
-                           and _pads_as_same(padding, tuple(kernel_shape))
-                           and dtype is None)
+        same = (tuple(stride) == (1, 1) and dtype is None
+                and _pads_as_same(padding, tuple(kernel_shape)))
+        self.one_kernel = same and conv_nChan == 1
+        self.mc_kernel = (same and conv_nChan >= 2
+                          and all(k % 2 for k in kernel_shape))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        w = self.conv.weight
+        w, b = self.conv.weight, self.conv.bias
         if self.one_kernel and conv_block.takes(x, w):
-            return self.reg(conv_block.conv_block(x, w, self.conv.bias,
-                                                  self.activation))
+            return self.reg(conv_block.conv_block(x, w, b, self.activation))
+        if self.mc_kernel and conv_block_mc.takes(x, w):
+            return self.reg(conv_block_mc.conv_block_mc(x, w, b,
+                                                        self.activation))
         return self.reg(self.act(self.conv(x)))
 
 

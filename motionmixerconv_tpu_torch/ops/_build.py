@@ -149,6 +149,14 @@ def _declare(lib) -> None:
     lib.mmc_conv_block_fwd.restype = i
     lib.mmc_conv_block_bwd.argtypes = [p] * 9 + [i] * 6 + [p]
     lib.mmc_conv_block_bwd.restype = i
+    lib.mmc_conv_block_mc_device_launches.argtypes = [p]
+    lib.mmc_conv_block_mc_device_launches.restype = i
+    lib.mmc_conv_block_mc_smem_bytes.argtypes = [i] * 8
+    lib.mmc_conv_block_mc_smem_bytes.restype = L
+    lib.mmc_conv_block_mc_fwd.argtypes = [p] * 5 + [i] * 10 + [p]
+    lib.mmc_conv_block_mc_fwd.restype = i
+    lib.mmc_conv_block_mc_bwd.argtypes = [p] * 8 + [i] * 10 + [p]
+    lib.mmc_conv_block_mc_bwd.restype = i
     lib.mmc_adam_max_tensors.argtypes = []
     lib.mmc_adam_max_tensors.restype = i
     lib.mmc_adam_device_launches.argtypes = [p]

@@ -19,8 +19,11 @@ one train-mode forward on the first model window with the pre-update
 parameters. Plain torch would move them on every one of the rollout's
 forwards.
 
-Training and evaluation run the plain ``nn.Module`` forward with autograd;
-the fused kernels are inference only. On a CUDA device a step (teacher
+Training and evaluation run the ``nn.Module`` forward with autograd. On a
+CUDA device its ConvBlocks run their hand-written kernels forward and
+backward (``ops/conv_block.py`` at one channel, ``ops/conv_block_mc.py``
+at more, as the autoregressive models have); the fused whole-model
+kernels (B2, B3) serve only. On a CUDA device a step (teacher
 forcing or closed loop, one graph each) and an evaluation batch are
 captured CUDA graphs, replayed once per batch, as in ``Trainer``. Under a
 mesh (``Trainer``'s) the harvest forward, like every train-mode forward,

@@ -632,3 +632,184 @@ def test_flagship_step_graph_takes_one_adam_launch(card, monkeypatch):
           f"{with_torch} through torch's Adam, {n} tensors")
     assert n == 52
     assert 2 * n + 10 <= with_torch - with_kernel <= 2 * n + 40
+
+
+CONV_BLOCK_MC_CASES = [  # (N, C, T, E, taps, activation)
+    (50, 8, 10, 192, (5, 5), "mish"),   # the autoregressive training step
+    (50, 8, 10, 192, (9, 29), "mish"),  # the conv study's widest kernel
+    (50, 8, 10, 192, (1, 1), "mish"),
+    (50, 4, 10, 192, (9, 9), "gelu"),   # the autoregressive study's
+    (50, 24, 10, 192, (5, 5), "mish"),  # the most channels whose tiles fit
+    (7, 3, 10, 37, (3, 7), "gelu"),     # a slice past the plane's edge
+    (3, 2, 17, 5, (5, 3), "mish"),      # two bands of rows, a narrow plane
+]
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("n,c,t,e,k,act", CONV_BLOCK_MC_CASES)
+def test_conv_block_mc_kernels_against_float64_and_cudnn(card, n, c, t, e, k,
+                                                         act):
+    """The multi-channel ConvBlock's kernels (a, act'(z), dx, dw, db)
+    against float64, within 1e-5 of each output's largest magnitude
+    (float32 sums of C kh kw terms, and of the batch's positions for dw and
+    db, in another order), as near as cuDNN's float32 route with TF32 off
+    (within 1e-5 too); three launches bit for bit; no plain version
+    called."""
+    import torch.nn.functional as F
+
+    from motionmixerconv_tpu_torch.ops import conv_block_mc
+
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator().manual_seed(9)
+    x, g = (torch.randn(n, c, t, e, generator=gen).to(card) for _ in range(2))
+    w = (torch.randn(c, c, *k, generator=gen) / (c * k[0] * k[1]) ** 0.5
+         ).to(card)
+    b = (torch.randn(c, generator=gen) * 0.1).to(card)
+    plain = conv_block_mc.PLAIN_CALLS.value
+    got = []
+    for _ in range(3):
+        a, da = conv_block_mc.conv_block_mc_fwd(x, w, b, act, with_grad=True)
+        got.append([a, da, *conv_block_mc.conv_block_mc_bwd(x, da, g, w, b,
+                                                             act)])
+    assert conv_block_mc.PLAIN_CALLS.value == plain
+    for other in got[1:]:
+        assert all(torch.equal(u, v) for u, v in zip(got[0], other))
+    d = [v.double().requires_grad_() for v in (x, w, b)]
+    z = F.conv2d(d[0], d[1], d[2], padding="same")
+    z_leaf = z.detach().requires_grad_()
+    a64 = conv_block_mc.get_activation(act)(z_leaf)
+    da64, = torch.autograd.grad(a64.sum(), z_leaf)
+    want = [a64.detach(), da64, *conv_block_mc.conv_block_mc_bwd_plain(
+        d[0].detach(), g.double(), d[1].detach(), d[2].detach(), act)]
+    cudnn = [conv_block_mc.conv_block_mc_plain(x, w, b, act), None,
+             *conv_block_mc.conv_block_mc_bwd_plain(x, g, w, b, act)]
+    for name, u, v, lib in zip(("a", "da", "dx", "dw", "db"), got[0], want,
+                               cudnn):
+        scale = float(v.abs().max())
+        assert u.shape == v.shape and u.dtype == torch.float32
+        assert float((u.double() - v).abs().max()) <= 1e-5 * scale, name
+        if lib is not None:
+            assert float((lib.double() - v).abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.card
+def test_conv_block_mc_counts_launches_and_replays_in_a_graph(card):
+    """An eight-channel (5,5) ConvBlock on the card runs the forward kernel
+    and the two backward kernels and nothing else (no cuDNN convolution, no
+    elementwise chain); the device counters see every eager call and every
+    replay of a captured forward and backward, whose result is the eager
+    one bit for bit; the wrapper's tiles fit as the library counts them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from motionmixerconv_tpu_torch.models import ConvBlock
+    from motionmixerconv_tpu_torch.ops import _build, conv_block_mc
+
+    lib = _build.load_library()
+    p = conv_block_mc.plan(8, 10, 192, 5, 5)
+    for smem, backward in ((p.smem_fwd, 0), (p.smem_bwd, 1)):
+        assert lib.mmc_conv_block_mc_smem_bytes(8, 10, 192, 5, 5, p.bt, p.be,
+                                                backward) == smem
+    block = ConvBlock(8, (5, 5), activation="mish").to(card)
+    gen = torch.Generator().manual_seed(10)
+    x, g = (torch.randn(50, 8, 10, 192, generator=gen).to(card)
+            for _ in range(2))
+    xs = x.clone().requires_grad_()
+    params = [block.conv.weight, block.conv.bias]
+
+    def step():
+        a = block(xs)
+        return (a, *torch.autograd.grad(a, [xs, *params], g))
+
+    # every call on the capture's stream: the leaves' gradient nodes keep
+    # the stream of their first backward, which a capture may not wait on
+    side = torch.cuda.Stream(card)
+    side.wait_stream(torch.cuda.current_stream(card))
+    with torch.cuda.stream(side):
+        step()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            eager = step()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA
+                 and not getattr(e, "is_user_annotation", False)]
+        assert len(names) == 3 and all("conv_block_mc_" in n
+                                       for n in names), names
+        start = conv_block_mc.device_launches()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            captured = step()
+        now = conv_block_mc.device_launches()
+        assert (now[0] - start[0], now[1] - start[1]) == (0, 0)
+        for _ in range(5):
+            graph.replay()
+        now = conv_block_mc.device_launches()
+        assert (now[0] - start[0], now[1] - start[1]) == (5, 5)
+    assert all(torch.equal(u, v) for u, v in zip(captured, eager))
+
+
+@pytest.mark.card
+def test_a_closed_loop_step_through_the_kernels_matches_the_modules(
+        card, monkeypatch):
+    """One closed-loop training step of the autoregressive ConvMixer (8
+    channels, (5,5), BatchNorm, 5 chained forwards) through the kernels
+    against the same step through cuDNN's modules (TF32 off): the loss
+    within 1e-5 relative, each parameter's gradient within 1e-4 of the
+    larger of its norm and the median leaf's, as the benchmark's
+    ``leaf_gap`` takes it (float32 sums in other orders, through five
+    chained rollouts and BatchNorm), leaving out, as the benchmark does,
+    leaves whose gradient is under a thousandth of the median leaf's
+    (``encoder.channelUpscaling.bias`` reaches the loss only through
+    LayerNorms over the width it shifts uniformly: its gradient is
+    rounding); 40 backward calls of the kernels."""
+    import copy
+    from types import SimpleNamespace
+
+    import numpy as np
+
+    from motionmixerconv_tpu_torch.cli._runner import build_conv_mixer
+    from motionmixerconv_tpu_torch.data.constants import H36M_DIM_USED_XYZ
+    from motionmixerconv_tpu_torch.ops import conv_block_mc
+    from motionmixerconv_tpu_torch.train import AutoregressiveTrainer
+
+    torch.backends.cudnn.allow_tf32 = False
+    args = SimpleNamespace(num_blocks=4, hidden_dim=192, conv_nChan=8,
+                           conv1_kernel_shape=(5, 5), activation="mish",
+                           regularization=-1.0, r_se=8,
+                           encoder_n_harmonic_functions=0,
+                           encoder_omega0=0.0, fused_encoder=False)
+    model = build_conv_mixer(args, 66, 66, 10, 5,
+                             generator=torch.Generator().manual_seed(11))
+    frames = torch.from_numpy(np.random.RandomState(11).randn(
+        3000, 96).astype(np.float32) * 300).to(card)
+    starts = torch.arange(50, device=card) * 40
+    w = torch.ones(50, device=card)
+
+    def step():
+        m = copy.deepcopy(model).to(card)
+        trainer = AutoregressiveTrainer(
+            m, make_optimizer(m.parameters(), lr=1e-3), loss_type="mpjpe",
+            dim_used=H36M_DIM_USED_XYZ, input_n=10, output_n=25,
+            input_n_model=10, output_n_model=5, step_window=5)
+        loss = trainer._train_loss(frames, starts, w, teacher_forcing=False)
+        names, leaves = zip(*m.named_parameters())
+        grads = torch.autograd.grad(loss, leaves)
+        return float(loss.detach()), dict(zip(names, grads))
+
+    before = conv_block_mc.device_launches()
+    loss, grads = step()
+    calls = conv_block_mc.device_launches()[1] - before[1]
+    monkeypatch.setattr(conv_block_mc, "takes", lambda x, weight: False)
+    loss_m, grads_m = step()
+    norms = {k: float(v.norm()) for k, v in grads_m.items()}
+    median = float(np.median(list(norms.values())))
+    gaps = {k: float((grads[k] - v).norm()) / max(norms[k], median)
+            for k, v in grads_m.items() if norms[k] >= 1e-3 * median}
+    worst = max(gaps, key=gaps.get)
+    print(f"closed-loop step: loss {loss} against {loss_m}, worst leaf "
+          f"{worst} {gaps[worst]:.3e}, {calls} backward calls")
+    assert calls == 40
+    assert abs(loss - loss_m) <= 1e-5 * abs(loss_m)
+    assert gaps[worst] <= 1e-4, worst

@@ -265,14 +265,14 @@ def test_chip_smoke_runs_every_block():
 
 
 def test_chip_smoke_phases_are_one_table(capsys):
-    """chip_smoke.py's PHASES runs phases 1-31 once each, in order; its rows
+    """chip_smoke.py's PHASES runs phases 1-32 once each, in order; its rows
     have unique names, need only earlier rows and take one argument (the
     Run); ``alone`` refuses a name that is not a row, naming the rows,
     before it looks for a card."""
     import inspect
 
     cs = _chip_smoke()
-    assert [n for row in cs.PHASES for n in row[0]] == list(range(1, 32))
+    assert [n for row in cs.PHASES for n in row[0]] == list(range(1, 33))
     names = [row[1] for row in cs.PHASES]
     assert len(set(names)) == len(names)
     for i, (_, name, fn, needs, _) in enumerate(cs.PHASES):
